@@ -15,20 +15,34 @@ Phases (any failure ends the script with a non-zero exit):
      tests/test_kernels.py's shapes in float32 and bf16 and at the hub size
      4096^3 bf16 (``gemm_agrees``, element by element: float32 within
      RTOL·(|ref| + sqrt(k)), bf16 within one bf16 ulp of |ref| plus the
-     float32 term), the budget scan over
-     1024 runs of full-space permutations of the GEMM's 10,140 configs
-     with budgets that run out mid-row (bit-identical); times by CUDA
-     events (median of 10) beside each kernel's bound;
-  4. the main path, part one: a live random-search recording of the GEMM
-     at 4096^3 bf16 (3 repeats per config) through ``record_cache``, shard
-     -> merge -> a cache file labelled with the card's name;
-  5. the main path, part two: ``replay_many`` of 1024 runs over that
-     cache, then ``make_scorer`` + ``evaluate_strategy`` (25 repeats) for
-     random search and the genetic algorithm with the torch engine on the
-     card and with the numpy engine; scores must be bit-identical.
+     float32 term); the convolution, hotspot (t_block 1, 4, 16) and
+     dedispersion (a dividing and a non-dividing tiling) kernels at
+     tests/test_kernels.py's shapes and at the hub size, within its
+     tolerances (1e-3, 1e-4, 1e-4); the budget scan over 1024 runs of
+     full-space permutations of the GEMM's 10,140 configs with budgets
+     that run out mid-row (bit-identical); times by CUDA events (median of
+     10) beside each kernel's bound and, where one PyTorch call computes
+     the same function, that call's time;
+  4. the main path, part one: a live random-search recording of each hub
+     kernel at its hub size (GEMM 4096^3 bf16, convolution 4096^2 with a
+     17x17 filter, hotspot 4096^2, dedispersion 256 channels x 16384
+     samples x 256 dms; 3 repeats per config, the number of evaluations
+     cut per kernel) through ``record_cache``, shard -> merge -> a cache
+     file labelled with the card's name;
+  5. the main path, part two: ``replay_many`` of 1024 runs over the GEMM's
+     recording, then ``make_scorer`` + ``evaluate_strategy`` (25 repeats)
+     for random search and the genetic algorithm, on the GEMM's recording
+     and on all four (Eq. 3 aggregate), with the torch engine on the card
+     and with the numpy engine; scores must be bit-identical;
+  6. the main path, part three: ``exhaustive_hypertune`` of the genetic
+     algorithm over its 108-point Table III grid across the four
+     recordings (3 repeats, cut from the paper's 25), torch engine; the
+     best, closest-to-mean and worst hyperconfigurations are rescored with
+     the numpy engine and must be bit-identical. A wall-clock limit fails
+     the phase if it runs over.
 
 Kernel launch counters are set to 0 just before phase 4 and read just
-after phase 5; each kernel must have launched there. The line before the
+after phase 6; each kernel must have launched there. The line before the
 last is the JSON summary of every kernel; the last line is the device
 record ``{"ok": true, "device": {...}}``.
 """
@@ -37,6 +51,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import signal
 import statistics
 import subprocess
 import sys
@@ -49,10 +64,21 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): what each kernel's bound uses
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12       # float32 outside the tensor cores (an FMA is 2)
+PEAK_F32_ADDS = 33.5e12      # float32 adds a second (one per lane a clock)
 PEAK_F64_FLOPS = 34e12       # float64 outside the tensor cores
 PEAK_BYTES = 3.35e12
 RTOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 HUB = 4096
+# tests/test_kernels.py's shapes and tolerances of the other hub kernels
+CONV_SHAPES = [(64, 128, 5, 5, 32, 128), (96, 130, 3, 7, 48, 96),
+               (128, 256, 17, 17, 16, 128)]   # (h, w, fh, fw, strip_h, bw)
+CONV_HUB_TILINGS = [(64, 256), (48, 320)]     # dividing, non-dividing
+HOT_TOL, CONV_TOL, DEDISP_TOL = 1e-4, 1e-3, 1e-4
+HOT_HUB_TILING = (64, 512)                    # (strip_h, block_w)
+HOT_T_BLOCKS = (1, 4, 16)
+DEDISP_TILINGS = [(8, 256), (4, 192), (16, 128)]
+DEDISP_HUB_TILINGS = [(32, 512), (12, 384)]   # dividing, non-dividing
 GEMM_SHAPES = [  # (m, n, k, block_m, block_n, block_k)
     (128, 128, 128, 64, 128, 128),
     (192, 256, 320, 96, 128, 64),
@@ -61,10 +87,20 @@ GEMM_SHAPES = [  # (m, n, k, block_m, block_n, block_k)
 HUB_TILINGS = [(128, 128, 64), (96, 160, 48)]  # aligned, irregular
 SCAN_RUNS = 1024
 REPEATS = 25
-# the live recording's budget: fresh evaluations, and measured seconds as a
-# cap (a few tilings take seconds a launch; about 25 s wall in all)
-RECORD_EVALS = 512
-RECORD_SECONDS = 150.0
+# the live recordings' budgets: fresh evaluations, and measured seconds as
+# a cap (a few tilings take tens of ms a launch). Sizes are the hub's.
+HUB_PROBLEMS = {
+    "gemm": {"m": HUB, "n": HUB, "k": HUB},
+    "convolution": {"h": HUB, "w": HUB, "fh": 17, "fw": 17},
+    "hotspot": {"h": HUB, "w": HUB},
+    "dedispersion": {"nchan": 256, "ntime": 16384, "ndm": 256},
+}
+RECORD_EVALS = {"gemm": 512, "convolution": 1024, "hotspot": 1024,
+                "dedispersion": 1024}
+RECORD_SECONDS = {"gemm": 150.0, "convolution": 60.0, "hotspot": 60.0,
+                  "dedispersion": 60.0}
+HYPERTUNE_REPEATS = 3        # the paper's 25, cut to fit the time limit
+HYPERTUNE_LIMIT_S = 300      # phase 6 fails past this wall-clock limit
 
 
 def fail(msg: str) -> None:
@@ -115,6 +151,16 @@ def gemm_agrees(out: torch.Tensor, ref: torch.Tensor, k: int,
     return (bool((diff <= limit).all()), diff.max().item(), worst)
 
 
+def kernel_row(name: str, source: str, replaces: str, err: float, ms: float,
+               plain_ms: float, ops_ms: float, bytes_ms: float,
+               library_ms) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
 def check_gemm(device: str, shapes, hub: int) -> dict:
     """GEMM kernel vs ``gemm_plain`` on the card; times at the hub size."""
     from repro_torch.kernels import gemm as gm
@@ -158,13 +204,135 @@ def check_gemm(device: str, shapes, hub: int) -> dict:
           f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
           f"torch.addmm {library_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f}"
           f" ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
-    return {"name": "gemm", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/gemm.cu",
-            "replaces": "src/repro/kernels/gemm.py:40",
-            "max_abs_err": hub_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": library_ms}
+    return kernel_row("gemm", "src/repro_torch/kernels/csrc/gemm.cu",
+                      "src/repro/kernels/gemm.py:40", hub_err, ms, plain_ms,
+                      ops_ms, bytes_ms, library_ms)
+
+
+def agree(what: str, out: torch.Tensor, ref: torch.Tensor,
+          tol: float) -> float:
+    """Max |err| of a kernel's output against its plain version's; fails
+    past tests/test_kernels.py's ``rtol = atol = tol``."""
+    if out.shape != ref.shape:
+        fail(f"{what}: shape {tuple(out.shape)} against the plain version's "
+             f"{tuple(ref.shape)}")
+    err = (out - ref).abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and torch.allclose(
+        out, ref, rtol=tol, atol=tol)
+    print(f"  {what}: max |err| {err:.6g}"
+          f"{' (bit-identical)' if torch.equal(out, ref) else ''} "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{what} disagrees with its plain version")
+    return err
+
+
+def randn(rng, shape, device, scale: float = 1.0) -> torch.Tensor:
+    x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+    return torch.from_numpy(x).to(device)
+
+
+def check_conv(device: str) -> dict:
+    """Convolution kernel vs ``conv2d_plain``; times at the hub size."""
+    from repro_torch.kernels import convolution as cv
+    rng = np.random.default_rng(1)
+    cases = CONV_SHAPES + [(HUB, HUB, 17, 17, sh, bw)
+                           for sh, bw in CONV_HUB_TILINGS]
+    hub_err = 0.0
+    for h, w, fh, fw, sh, bw in cases:
+        x, f = randn(rng, (h, w), device), randn(rng, (fh, fw), device)
+        out = cv.conv2d(x, f, strip_h=sh, block_w=bw)
+        err = agree(f"convolution {h}x{w} filter {fh}x{fw} tiles ({sh},{bw})",
+                    out, cv.conv2d_plain(x, f), CONV_TOL)
+        if h == HUB:
+            hub_err = max(hub_err, err)
+    sh, bw = CONV_HUB_TILINGS[0]
+    ms = time_ms(lambda: cv.conv2d(x, f, strip_h=sh, block_w=bw))
+    plain_ms = time_ms(lambda: cv.conv2d_plain(x, f))
+    # yardstick only: one PyTorch call computing the same function (cuDNN,
+    # TF32 off as main() sets it)
+    library_ms = time_ms(lambda: torch.nn.functional.conv2d(
+        x[None, None], f[None, None], padding=8))
+    flops = 2.0 * HUB * HUB * 17 * 17
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = (nbytes(x, f) + HUB * HUB * 4) / PEAK_BYTES * 1e3
+    print(f"  convolution {HUB}^2 17x17 ({sh},{bw}): kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"F.conv2d {library_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} "
+          f"ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+    return kernel_row("convolution", "src/repro_torch/kernels/csrc/"
+                      "convolution.cu", "src/repro/kernels/convolution.py:40",
+                      hub_err, ms, plain_ms, ops_ms, bytes_ms, library_ms)
+
+
+def check_hotspot(device: str) -> dict:
+    """Hotspot kernel vs ``hotspot_plain`` at t_block 1, 2, 4 (test shape)
+    and 1, 4, 16 (hub size); the JSON row is t_block 4 at the hub size."""
+    from repro_torch.kernels import hotspot as hs
+    rng = np.random.default_rng(3)
+    t, p = randn(rng, (64, 128), device), randn(rng, (64, 128), device, 0.1)
+    for tb in (1, 2, 4):
+        agree(f"hotspot 64x128 tiles (32,128) t_block {tb}",
+              hs.hotspot(t, p, strip_h=32, block_w=128, t_block=tb),
+              hs.hotspot_plain(t, p, t_block=tb), HOT_TOL)
+    t, p = randn(rng, (HUB, HUB), device), randn(rng, (HUB, HUB), device, 0.1)
+    sh, bw = HOT_HUB_TILING
+    bytes_ms = (nbytes(t, p) + HUB * HUB * 4) / PEAK_BYTES * 1e3
+    row = None
+    for tb in HOT_T_BLOCKS:
+        err = agree(f"hotspot {HUB}^2 tiles ({sh},{bw}) t_block {tb}",
+                    hs.hotspot(t, p, strip_h=sh, block_w=bw, t_block=tb),
+                    hs.hotspot_plain(t, p, t_block=tb), HOT_TOL)
+        ms = time_ms(lambda: hs.hotspot(t, p, strip_h=sh, block_w=bw,
+                                        t_block=tb))
+        plain_ms = time_ms(lambda: hs.hotspot_plain(t, p, t_block=tb))
+        ops_ms = 8.0 * HUB * HUB * tb / PEAK_F32_FLOPS * 1e3
+        print(f"  hotspot {HUB}^2 ({sh},{bw}) t_block {tb}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, "
+              f"bytes {bytes_ms:.4f})")
+        if tb == 4:
+            row = kernel_row("hotspot", "src/repro_torch/kernels/csrc/"
+                             "hotspot.cu", "src/repro/kernels/hotspot.py:49",
+                             err, ms, plain_ms, ops_ms, bytes_ms, None)
+    return row
+
+
+def check_dedisp(device: str) -> dict:
+    """Dedispersion kernel vs ``dedisperse_plain``; times at the hub size
+    with the dividing tiling."""
+    from repro_torch.kernels import dedispersion as dd
+    rng = np.random.default_rng(5)
+    nchan, ntime, ndm = 32, 768 + dd.MAX_DELAY, 24
+    x = randn(rng, (nchan, ntime), device)
+    delays = dd.make_delays(nchan, ndm, device=device)
+    for bdm, bt in DEDISP_TILINGS:
+        agree(f"dedispersion {nchan}x{ntime} {ndm} dms tiles ({bdm},{bt})",
+              dd.dedisperse(x, delays, block_dm=bdm, block_t=bt),
+              dd.dedisperse_plain(x, delays), DEDISP_TOL)
+    hub = HUB_PROBLEMS["dedispersion"]
+    nchan, ntime, ndm = hub["nchan"], hub["ntime"], hub["ndm"]
+    x = randn(rng, (nchan, ntime), device)
+    delays = dd.make_delays(nchan, ndm, device=device)
+    ref = dd.dedisperse_plain(x, delays)
+    hub_err = max(agree(f"dedispersion {nchan}x{ntime} {ndm} dms tiles "
+                        f"({bdm},{bt})",
+                        dd.dedisperse(x, delays, block_dm=bdm, block_t=bt),
+                        ref, DEDISP_TOL)
+                  for bdm, bt in DEDISP_HUB_TILINGS)
+    bdm, bt = DEDISP_HUB_TILINGS[0]
+    ms = time_ms(lambda: dd.dedisperse(x, delays, block_dm=bdm, block_t=bt))
+    plain_ms = time_ms(lambda: dd.dedisperse_plain(x, delays))
+    adds = float(nchan * ndm * (ntime - dd.MAX_DELAY))
+    ops_ms = adds / PEAK_F32_ADDS * 1e3
+    bytes_ms = nbytes(x, delays, ref) / PEAK_BYTES * 1e3
+    print(f"  dedispersion hub ({bdm},{bt}): kernel {ms:.4f} ms "
+          f"({adds / ms / 1e9:.2f} T adds/s), plain {plain_ms:.4f} ms, "
+          f"bound {max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, "
+          f"bytes {bytes_ms:.4f})")
+    return kernel_row("dedispersion", "src/repro_torch/kernels/csrc/"
+                      "dedispersion.cu", "src/repro/kernels/dedispersion.py:50",
+                      hub_err, ms, plain_ms, ops_ms, bytes_ms, None)
 
 
 def synthetic_gemm_cache(seed: int = 0):
@@ -237,51 +405,56 @@ def check_scan(device: str, runs: int, seed: int = 1) -> dict:
     print(f"  budget_scan {runs}x{n}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
           f"({moved / 1e6:.1f} MB moved)")
-    return {"name": "budget_scan", "route": "cuda",
-            "source": "src/repro_torch/core/engine_torch/csrc/budget_scan.cu",
-            "replaces": "src/repro/core/engine_jax/replay.py:66",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+    return kernel_row("budget_scan", "src/repro_torch/core/engine_torch/"
+                      "csrc/budget_scan.cu",
+                      "src/repro/core/engine_jax/replay.py:66", err, ms,
+                      plain_ms, ops_ms, bytes_ms, None)
 
 
-# ------------------------------------------------------------- phases 4-5
-def record(out_dir: pathlib.Path, device: str, problem: dict, evals: int,
-           max_seconds: float):
-    """Live random-search recording of the GEMM through ``record_cache``."""
+# ------------------------------------------------------------- phases 4-6
+def record(out_dir: pathlib.Path, device: str, name: str, problem: dict,
+           evals: int, max_seconds: float):
+    """Live random-search recording of one hub kernel through
+    ``record_cache``."""
     from repro_torch.core.record import RecordSpec, record_cache
-    from repro_torch.kernels import gemm as gm
-    spec = RecordSpec.create("gemm", target=device, problem=problem,
+    from repro_torch.kernels import get_kernel
+    mod = get_kernel(name).module
+    if name == "gemm":
+        def fit(conf):
+            return mod.fits(conf, torch.bfloat16)
+    else:
+        def fit(conf):
+            return mod.fits(conf, problem)
+    spec = RecordSpec.create(name, target=device, problem=problem,
                              strategy="random_search", repeats=3,
                              max_evals=evals, max_seconds=max_seconds,
                              seed=0)
-    out = out_dir / f"gemm@{spec.device}.json.gz"
-    for stale in out_dir.glob("gemm@*"):
+    out = out_dir / f"{name}@{spec.device}.json.gz"
+    for stale in out_dir.glob(f"{name}@*"):
         stale.unlink()
-    space = gm.space()
-    unfit = sum(not gm.fits(space.as_dict(c), torch.bfloat16)
-                for c in space.valid_configs)
-    print(f"  fits() rejects {unfit} of the {space.size} bf16 tilings "
-          f"before launch")
+    space = get_kernel(name).space(problem)
+    unfit = sum(not fit(space.as_dict(c)) for c in space.valid_configs)
+    print(f"  {name}: fits() rejects {unfit} of the {space.size} tilings "
+          f"before launch ({100.0 * unfit / space.size:.1f} %)")
     t0 = time.perf_counter()
     cache = record_cache(spec, str(out),
                          progress=lambda msg: print(f"  {msg}"))
     wall = time.perf_counter() - t0
     ok = [(r.time_s, k) for k, r in cache.results.items() if r.status == "ok"]
     errors = [k for k, r in cache.results.items() if r.status != "ok"]
-    rejected = sum(not gm.fits(cache.space.as_dict(
-        cache.space.config_from_id(k)), torch.bfloat16) for k in errors)
+    rejected = sum(not fit(cache.space.as_dict(cache.space.config_from_id(k)))
+                   for k in errors)
     print(f"  recorded {len(cache.results)} configs of {cache.space.size} "
-          f"for gemm@{spec.device} in {wall:.1f} s: {len(ok)} ok, "
+          f"for {name}@{spec.device} in {wall:.1f} s: {len(ok)} ok, "
           f"{len(errors) - rejected} refused at launch, {rejected} rejected "
           f"before launch by fits()")
     if not ok:
-        fail("the recording holds no ok observation")
+        fail(f"the {name} recording holds no ok observation")
     best, key = min(ok)
-    m, n, k = problem["m"], problem["n"], problem["k"]
     print(f"  best {cache.space.as_dict(cache.space.config_from_id(key))}: "
-          f"{best * 1e3:.4f} ms, {2.0 * m * n * k / best / 1e12:.2f} TFLOP/s")
+          f"{best * 1e3:.4f} ms"
+          + (f", {2.0 * HUB ** 3 / best / 1e12:.2f} TFLOP/s"
+             if name == "gemm" else ""))
     return cache, out
 
 
@@ -291,8 +464,6 @@ def replay_and_score(cache, out: pathlib.Path, device: str, runs: int,
     the torch engine on ``device`` and with the numpy engine."""
     from repro_torch.core.cache import CacheFile
     from repro_torch.core.engine_torch import replay_many
-    from repro_torch.core.methodology import evaluate_strategy, make_scorer
-    from repro_torch.core.parallel import StrategyFactory
     compiled, cols = cache.space.compiled, cache.columns
     rng = np.random.default_rng(2)
     rows = np.stack([rng.permutation(compiled.n_valid) for _ in range(runs)])
@@ -309,13 +480,23 @@ def replay_and_score(cache, out: pathlib.Path, device: str, runs: int,
     print(f"  replay_many {runs}x{compiled.n_valid} on the recording: "
           f"{int(got[0].sum())} commits in {wall:.3f} s wall, "
           f"{int(got[6].sum())} runs exhausted; matches the CPU replay")
-    loaded = CacheFile.load(str(out))
+    score_both_engines([CacheFile.load(str(out))], device, repeats)
+
+
+def score_both_engines(caches, device: str, repeats: int) -> None:
+    """``evaluate_strategy`` of random search and the GA over ``caches``
+    (Eq. 3 aggregate) with the torch engine on ``device`` and with the
+    numpy engine: scores, curves and charges must be bit-identical."""
+    from repro_torch.core.methodology import evaluate_strategy, make_scorer
+    from repro_torch.core.parallel import StrategyFactory
+    print(f"  scoring over {', '.join(c.kernel for c in caches)}:")
     for name in ("random_search", "genetic_algorithm"):
         factory = StrategyFactory.create(name, {})
         reports = {}
         for engine in ("torch", "vectorized"):
-            scorer = make_scorer(loaded, engine=engine, device=device)
-            reports[engine] = evaluate_strategy(factory, [scorer],
+            scorers = [make_scorer(c, engine=engine, device=device)
+                       for c in caches]
+            reports[engine] = evaluate_strategy(factory, scorers,
                                                 repeats=repeats, seed=0)
             r = reports[engine]
             print(f"  {name:17s} engine {engine:10s} score {r.score!r} "
@@ -324,8 +505,64 @@ def replay_and_score(cache, out: pathlib.Path, device: str, runs: int,
         a, b = reports["torch"], reports["vectorized"]
         if (a.score, a.fresh_evals, a.simulated_seconds) != \
                 (b.score, b.fresh_evals, b.simulated_seconds) \
-                or not np.array_equal(a.curve, b.curve):
+                or not np.array_equal(a.curve, b.curve) \
+                or a.per_space_score != b.per_space_score:
             fail(f"{name}: torch-engine scores differ from the numpy engine")
+
+
+def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
+    """Exhaustive GA hypertuning (Table III grid) across ``caches`` with
+    the torch engine; the best, closest-to-mean and worst configurations
+    rescored with the numpy engine must be bit-identical. Fails past
+    ``limit_s`` seconds of wall clock."""
+    from repro_torch.core.hypertuner import (exhaustive_hypertune,
+                                             score_hyperconfig)
+    from repro_torch.core.methodology import make_scorer
+    scorers = [make_scorer(c, engine="torch", device=device) for c in caches]
+    for s in scorers:
+        # the GA restarts forever unless the budget runs out before its last
+        # fresh configuration (ROADMAP Queue 3): refuse such a recording
+        charges = s.cache.columns.charge_s
+        total = float(charges.sum())
+        print(f"  {s.name}: budget {s.budget_s:.4f} s of {total:.4f} s "
+              f"total charge, {s.n_total} configs")
+        if not s.budget_s < total - float(charges.max()):
+            fail(f"{s.name}: the methodology's budget reaches the whole "
+                 f"charge; the GA would never end")
+
+    def over_time(signum, frame):
+        fail(f"phase 6 ran over its {limit_s} s wall-clock limit")
+
+    signal.signal(signal.SIGALRM, over_time)
+    signal.alarm(limit_s)
+    try:
+        t0 = time.perf_counter()
+        res = exhaustive_hypertune("genetic_algorithm", scorers,
+                                   repeats=repeats, seed=0)
+        wall = time.perf_counter() - t0
+        print(f"  {len(res.results)} GA hyperconfigurations x {repeats} "
+              f"repeats x {len(scorers)} spaces in {wall:.1f} s wall "
+              f"({res.simulated_seconds:.1f} simulated s)")
+        best, avg = res.best, res.closest_to_mean()
+        rel = (best.score - avg.score) / max(abs(avg.score), 1e-2)
+        print(f"  optimal vs average config: {best.score:+.4f} vs "
+              f"{avg.score:+.4f} ({100*rel:+.1f}%; paper Sec. IV-B reports "
+              f"+94.8% on average)")
+        numpy_scorers = [make_scorer(c, engine="vectorized") for c in caches]
+        for label, r in (("best", best), ("closest to mean", avg),
+                         ("worst", res.worst)):
+            rep = score_hyperconfig("genetic_algorithm", r.hyperparams,
+                                    numpy_scorers, repeats=repeats, seed=0)
+            same = (rep.score == r.score
+                    and np.array_equal(rep.curve, r.report.curve)
+                    and rep.per_space_score == r.report.per_space_score)
+            print(f"  {label:16s} {r.hyperparams}: torch {r.score!r}, numpy "
+                  f"{rep.score!r} {'bit-identical' if same else 'DIFFERENT'}")
+            if not same:
+                fail(f"hypertune: the {label} configuration scores "
+                     f"differently with the numpy engine")
+    finally:
+        signal.alarm(0)
 
 
 # ----------------------------------------------------------------- driver
@@ -341,7 +578,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import cuda
     from repro_torch.core.engine_torch import replay as rp
-    from repro_torch.kernels import gemm as gm
+    from repro_torch.kernels import HUB_KERNELS
 
     device = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -368,22 +605,41 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     print("[3] kernels against their plain versions")
-    kernels = [check_gemm(device, GEMM_SHAPES, HUB),
+    kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),
+               check_hotspot(device), check_dedisp(device),
                check_scan(device, SCAN_RUNS)]
 
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    gm.launches = 0
+    for mod in HUB_KERNELS.values():
+        mod.launches = 0
     rp.launches = 0
-    print("[4] main path: live recording of the GEMM at 4096^3 bf16")
-    cache, out = record(out_dir, device, {"m": HUB, "n": HUB, "k": HUB},
-                        RECORD_EVALS, RECORD_SECONDS)
-    gemm_launches = gm.launches
+    print("[4] main path: live recordings of the four hub kernels at their "
+          "hub sizes")
+    caches, paths = {}, {}
+    for name in ("gemm", "convolution", "hotspot", "dedispersion"):
+        t0 = time.perf_counter()
+        caches[name], paths[name] = record(
+            out_dir, device, name, HUB_PROBLEMS[name], RECORD_EVALS[name],
+            RECORD_SECONDS[name])
+        print(f"  [{name}: {time.perf_counter() - t0:.1f} s]")
+    from repro_torch.core.cache import CacheFile
+    loaded = [CacheFile.load(str(paths[name])) for name in caches]
     print("[5] main path: replay and scoring")
-    replay_and_score(cache, out, device, SCAN_RUNS, REPEATS)
-    launches = {"gemm": gm.launches, "budget_scan": rp.launches}
+    t0 = time.perf_counter()
+    replay_and_score(caches["gemm"], paths["gemm"], device, SCAN_RUNS,
+                     REPEATS)
+    score_both_engines(loaded, device, REPEATS)
+    print(f"  [phase 5: {time.perf_counter() - t0:.1f} s]")
+    print("[6] main path: exhaustive GA hypertuning across the four "
+          "recordings")
+    t0 = time.perf_counter()
+    hypertune(loaded, device, HYPERTUNE_REPEATS, HYPERTUNE_LIMIT_S)
+    print(f"  [phase 6: {time.perf_counter() - t0:.1f} s]")
+    launches = {name: mod.launches for name, mod in HUB_KERNELS.items()}
+    launches["budget_scan"] = rp.launches
     print(f"  launches on the main path: {launches}")
-    if not gemm_launches or not all(launches.values()):
+    if not all(launches.values()):
         fail(f"a kernel of the main path never launched: {launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -8,11 +8,19 @@ Port of ``src/repro/cli.py``, with the subcommands of this slice's path:
   merge-cache fold recording shards into one canonical cache file
   simulate    score one strategy configuration with the methodology in
               simulation mode (paper Sec. III-B/C, Eqs. 2–3)
+  hypertune   exhaustive hyperparameter-grid campaign (Sec. IV-B,
+              Table III), parallel (``--workers``) and resumable
+              (``--journal``)
+  meta        meta-strategy hyperparameter optimization (Sec. IV-C,
+              Eq. 4), journaled for resume
+  report      inspect a campaign journal: ranking, optimal-vs-average
+              improvement, wall-clock parallelism
 
 Flags mirror ``repro``'s flags of the same names, with one difference:
 ``--device`` names where the work runs (``cuda``, the default, or
 ``cpu``), and a live recording is labelled with the card's name. There is
-no hub yet, so ``simulate`` takes its spaces from ``--cache`` files.
+no hub yet, so the scoring commands take their spaces from repeatable
+``--cache`` files.
 """
 from __future__ import annotations
 
@@ -24,8 +32,12 @@ from typing import Sequence
 
 from .core import record as rec
 from .core.cache import CacheFile
+from .core.hypertuner import (HyperConfigResult, HyperTuningResult,
+                              exhaustive_hypertune, hyperparam_searchspace,
+                              meta_hypertune)
 from .core.methodology import evaluate_strategy, make_scorer
-from .core.parallel import StrategyFactory
+from .core.parallel import (CampaignExecutor, CampaignJournal,
+                            StrategyFactory, report_from_json)
 from .core.strategies import STRATEGIES
 from .kernels import KERNELS
 
@@ -121,6 +133,136 @@ def cmd_simulate(args) -> int:
     return 0
 
 
+def _scorers(args) -> list:
+    return [make_scorer(CacheFile.load(path), engine=args.engine,
+                        device=args.device) for path in args.cache]
+
+
+def _progress(quiet: bool):
+    return None if quiet else (lambda msg: print(msg, flush=True))
+
+
+def _journal(path: str | None) -> CampaignJournal | None:
+    return CampaignJournal(path) if path else None
+
+
+def _print_ranking(results: dict, top: int) -> None:
+    ranked = sorted(results.items(), key=lambda kv: -kv[1].score)
+    for hp_id, r in ranked[:top]:
+        print(f"  {r.score:+.4f}  {hp_id}")
+    if len(ranked) > top:
+        print(f"  ... {len(ranked) - top} more "
+              f"(worst {ranked[-1][1].score:+.4f})")
+
+
+def cmd_hypertune(args) -> int:
+    """Exhaustive hyperparameter tuning (paper Sec. IV-B, Table III)."""
+    scorers = _scorers(args)
+    with CampaignExecutor(workers=args.workers,
+                          backend=args.backend) as executor:
+        res = exhaustive_hypertune(args.strategy, scorers,
+                                   repeats=args.repeats, seed=args.seed,
+                                   progress=_progress(args.quiet),
+                                   executor=executor,
+                                   journal=_journal(args.journal))
+    _print_ranking(res.results, args.top)
+    best, avg = res.best, res.closest_to_mean()
+    rel = (best.score - avg.score) / max(abs(avg.score), 1e-2)
+    print(f"optimal vs average config: {best.score:+.4f} vs {avg.score:+.4f}"
+          f" ({100*rel:+.1f}%; paper Sec. IV-B reports +94.8% on average)")
+    print(f"campaign: {len(res.results)} configs, "
+          f"{res.simulated_seconds/3600:.2f} simulated h replayed in "
+          f"{res.wall_seconds:.1f} s wall ({args.workers} workers, "
+          f"engine {args.engine}"
+          + (f" on {scorers[0].device}" if args.engine == "torch" else "")
+          + f", drive: {best.report.fuse})")
+    if args.journal:
+        print(f"journal: {args.journal}")
+    return 0
+
+
+def cmd_meta(args) -> int:
+    """Meta-strategy hyperparameter tuning (paper Sec. IV-C, Eq. 4)."""
+    scorers = _scorers(args)
+    with CampaignExecutor(workers=args.workers,
+                          backend=args.backend) as executor:
+        res = meta_hypertune(args.strategy, args.meta_strategy, scorers,
+                             extended=not args.table3_grid,
+                             max_hp_evals=args.max_hp_evals,
+                             repeats=args.repeats, seed=args.seed,
+                             meta_hyperparams=_parse_kv(
+                                 args.meta_hyperparams, "--meta-hyperparams"),
+                             progress=_progress(args.quiet),
+                             executor=executor,
+                             journal=_journal(args.journal))
+    grid = hyperparam_searchspace(args.strategy,
+                                  extended=not args.table3_grid)
+    print(f"best hyperparameters for {args.strategy} "
+          f"(found by {args.meta_strategy}): {res.best_hyperparams}")
+    print(f"score {res.best_score:+.4f} after {len(res.evaluated)} of "
+          f"{grid.size} grid points ({res.wall_seconds:.1f} s wall"
+          + (f", drive: {res.fuse}" if res.fuse else "") + ")")
+    if res.wall_seconds > 0 and res.simulated_seconds:
+        print(f"simulated {res.simulated_seconds/3600:.2f} h of tuning "
+              f"replayed in {res.wall_seconds:.1f} s wall "
+              f"({res.simulated_seconds / res.wall_seconds:,.0f}x)")
+    if args.journal:
+        print(f"journal: {args.journal}")
+    return 0
+
+
+def cmd_report(args) -> int:
+    """Summarize a campaign journal (no recomputation)."""
+    header, records = CampaignJournal(args.journal).read()
+    if header is None:
+        raise SystemExit(f"no journal at {args.journal}")
+    mode = header.get("mode", "?")
+    print(f"campaign: {mode} {header.get('strategy')} "
+          f"(repeats={header.get('repeats')}, seed={header.get('seed')})")
+    print(f"spaces: {', '.join(header.get('spaces', []))}")
+    snapshots = [r for r in records if r.get("type") == "checkpoint"]
+    records = [r for r in records if r.get("type") != "checkpoint"]
+    if not records:
+        print("no completed evaluations yet")
+        return 0
+    if mode == "exhaustive":
+        results = {r["hp_id"]: HyperConfigResult(
+            r["hyperparams"], report_from_json(r["report"]))
+            for r in records}
+        grid = hyperparam_searchspace(header["strategy"])
+        print(f"progress: {len(results)}/{grid.size} configurations")
+        _print_ranking(results, args.top)
+        res = HyperTuningResult(header["strategy"], results, 0.0, 0.0)
+        best, avg = res.best, res.closest_to_mean()
+        rel = (best.score - avg.score) / max(abs(avg.score), 1e-2)
+        print(f"optimal vs average config: {best.score:+.4f} vs "
+              f"{avg.score:+.4f} ({100*rel:+.1f}%)")
+        modes = {r.report.fuse for r in results.values()}
+        print(f"drive: {modes.pop() if len(modes) == 1 else 'mixed'}")
+        work = sum(r.report.wall_seconds for r in results.values())
+    else:
+        ranked = sorted(records, key=lambda r: -r["score"])[:args.top]
+        for r in ranked:
+            print(f"  {r['score']:+.4f}  {r['hp_id']}")
+        if snapshots:
+            print(f"mid-run state snapshots: {len(snapshots)} "
+                  f"(resume continues inside the tuning run)")
+        work = 0.0
+    done_wall = max(r.get("done_wall", 0.0) for r in records)
+    simulated = sum(r["report"]["simulated_seconds"] if "report" in r
+                    else r["simulated_seconds"] for r in records)
+    print(f"simulated tuning replayed: {simulated/3600:.2f} h")
+    if done_wall:
+        rate = 60.0 * len(records) / done_wall
+        print(f"campaign wall: {done_wall:.1f} s "
+              f"({rate:.1f} configs/min)")
+        print(f"simulated-vs-wall speedup: {simulated/done_wall:,.0f}x")
+    if work and done_wall:
+        print(f"aggregate worker compute: {work:.1f} s -> "
+              f"average parallelism {work/done_wall:.2f}x")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="repro_torch",
@@ -157,6 +299,29 @@ def build_parser() -> argparse.ArgumentParser:
                              "crashes: rerun the same command to resume")
         pp.add_argument("--seed", type=int, default=0)
 
+    def add_space_args(pp) -> None:
+        pp.add_argument("--cache", action="append", required=True,
+                        metavar="PATH", help="T4 cache file; repeatable")
+        pp.add_argument("--repeats", type=int, default=25,
+                        help="methodology repeats per space (paper uses 25)")
+        pp.add_argument("--engine", choices=("torch", "vectorized", "scalar"),
+                        default="torch",
+                        help="torch replays every batch through the "
+                             "budget-scan kernel; vectorized and scalar are "
+                             "the numpy engines. Scores are bit-identical "
+                             "across all three")
+        pp.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                        help="where the torch engine replays (default: the "
+                             "card)")
+        pp.add_argument("--seed", type=int, default=0)
+
+    def add_exec_args(pp) -> None:
+        pp.add_argument("--workers", type=int, default=1,
+                        help="worker pool size (1 = serial; results are "
+                             "bit-identical at any worker count)")
+        pp.add_argument("--backend", choices=("auto", "thread", "process"),
+                        default="auto", help="worker pool backend")
+
     prec = sub.add_parser("record", help="record a live tuning run of a "
                           "registered kernel into a replayable cache")
     add_record_args(prec, bruteforce=False)
@@ -178,19 +343,43 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--strategy", required=True, choices=sorted(STRATEGIES))
     ps.add_argument("--hyperparams", default=None, metavar="K=V,...",
                     help="strategy hyperparameters (default: DEFAULTS)")
-    ps.add_argument("--cache", action="append", required=True,
-                    metavar="PATH", help="T4 cache file; repeatable")
-    ps.add_argument("--repeats", type=int, default=25,
-                    help="methodology repeats per space (paper uses 25)")
-    ps.add_argument("--engine", choices=("torch", "vectorized", "scalar"),
-                    default="torch",
-                    help="torch replays every batch through the budget-scan "
-                         "kernel; vectorized and scalar are the numpy "
-                         "engines. Scores are bit-identical across all three")
-    ps.add_argument("--device", choices=("cuda", "cpu"), default=None,
-                    help="where the torch engine replays (default: the card)")
-    ps.add_argument("--seed", type=int, default=0)
+    add_space_args(ps)
     ps.set_defaults(fn=cmd_simulate)
+
+    ph = sub.add_parser("hypertune", help="exhaustive hyperparameter "
+                        "campaign (Table III), parallel + resumable")
+    ph.add_argument("--strategy", required=True, choices=sorted(STRATEGIES))
+    ph.add_argument("--journal", default=None, metavar="PATH",
+                    help="JSONL checkpoint; rerun with the same path to "
+                         "resume an interrupted campaign")
+    ph.add_argument("--top", type=int, default=5,
+                    help="show the N best configurations")
+    ph.add_argument("--quiet", action="store_true")
+    add_space_args(ph)
+    add_exec_args(ph)
+    ph.set_defaults(fn=cmd_hypertune)
+
+    pm = sub.add_parser("meta", help="meta-strategy hyperparameter "
+                        "optimization (Eq. 4, Table IV)")
+    pm.add_argument("--strategy", required=True, choices=sorted(STRATEGIES))
+    pm.add_argument("--meta-strategy", required=True,
+                    choices=sorted(STRATEGIES))
+    pm.add_argument("--max-hp-evals", type=int, default=50)
+    pm.add_argument("--table3-grid", action="store_true",
+                    help="search the small Table III grid instead of the "
+                         "extended Table IV space")
+    pm.add_argument("--meta-hyperparams", default=None, metavar="K=V,...")
+    pm.add_argument("--journal", default=None, metavar="PATH")
+    pm.add_argument("--quiet", action="store_true")
+    add_space_args(pm)
+    add_exec_args(pm)
+    pm.set_defaults(fn=cmd_meta)
+
+    pr = sub.add_parser("report", help="summarize a campaign journal")
+    pr.add_argument("journal", metavar="JOURNAL",
+                    help="path to a campaign JSONL journal")
+    pr.add_argument("--top", type=int, default=10)
+    pr.set_defaults(fn=cmd_report)
     return p
 
 

@@ -40,6 +40,9 @@ BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "repro_torch"
 # kernel name -> source, relative to the package
 SOURCES = {
     "gemm": "kernels/csrc/gemm.cu",
+    "convolution": "kernels/csrc/convolution.cu",
+    "hotspot": "kernels/csrc/hotspot.cu",
+    "dedispersion": "kernels/csrc/dedispersion.cu",
     "budget_scan": "core/engine_torch/csrc/budget_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -8,10 +8,11 @@ card and takes its plain PyTorch version for tensors on the CPU, a tunable
 contract (``SMOKE_PROBLEM`` + ``make_live``) that turns the kernel into a
 live objective the recorder (``core.record``) can measure.
 
-This slice registers only the GEMM. The reference's other hub kernels
-(convolution, hotspot, dedispersion) and framework kernels (flash
-attention, SSD) are queued in ROADMAP.md; ``get_kernel`` raises
-``KeyError`` for them, as for any unknown name.
+The four benchmark-hub kernels of the paper are registered
+(``HUB_KERNELS``: dedispersion, convolution, hotspot, GEMM, as in the
+reference). The reference's framework kernels (flash attention, SSD) are
+queued in ROADMAP.md; ``get_kernel`` raises ``KeyError`` for them, as for
+any unknown name.
 """
 from __future__ import annotations
 
@@ -22,7 +23,15 @@ from typing import Callable, Mapping
 
 from ..core.costmodel import KernelWorkload
 from ..core.searchspace import SearchSpace
-from . import gemm
+from . import convolution, dedispersion, gemm, hotspot
+
+# registry used by the recording pipeline
+HUB_KERNELS = {
+    "dedispersion": dedispersion,
+    "convolution": convolution,
+    "hotspot": hotspot,
+    "gemm": gemm,
+}
 
 
 def _accepted(fn: Callable, problem: Mapping) -> dict:
@@ -64,7 +73,9 @@ class KernelSpec:
         return self.module.make_live(self.problem(problem), device=device)
 
 
-KERNELS: dict[str, KernelSpec] = {"gemm": KernelSpec("gemm", gemm, "hub")}
+KERNELS: dict[str, KernelSpec] = {
+    name: KernelSpec(name, mod, "hub") for name, mod in HUB_KERNELS.items()
+}
 
 
 def get_kernel(name: str) -> KernelSpec:

@@ -8,7 +8,10 @@ marked ``cuda`` and skip with a reason without one. The file imports only
 
 Tolerances: the GEMM ``RTOL[dtype]·√k`` of tests/test_kernels.py (the
 kernel sums over K in another order than the plain float32 matmul); the
-budget scan and the replay engine none — bit-identical.
+convolution 1e-3 and hotspot and dedispersion 1e-4, tests/test_kernels.py's
+(their kernels keep the plain versions' order of operations without FMA
+contraction, and chip_smoke.py reports their max |err|); the budget scan
+and the replay engine none — bit-identical.
 """
 import random
 
@@ -24,7 +27,10 @@ from repro_torch.core.runner import SimulationRunner
 from repro_torch.core.searchspace import SearchSpace
 from repro_torch.core.strategies import get_strategy
 from repro_torch.core.tunable import tunables_from_dict
+from repro_torch.kernels import convolution as cv
+from repro_torch.kernels import dedispersion as dd
 from repro_torch.kernels import gemm as gm
+from repro_torch.kernels import hotspot as hs
 
 pytestmark = pytest.mark.cuda
 
@@ -84,6 +90,72 @@ def test_gemm_rejects_before_launch_on_card(card):
     with pytest.raises(gm.ConfigRejected):
         gm.gemm(x, x, x, block_m=512, block_n=1024, block_k=64)
     assert gm.launches == before
+
+
+def _randn(rng, shape, card, scale=1.0):
+    x = rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+    return torch.from_numpy(x).to(card)
+
+
+@pytest.mark.parametrize("h,w,fh,fw,sh,bw", [
+    (64, 128, 5, 5, 32, 128),
+    (96, 130, 3, 7, 48, 96),          # padded width
+    (128, 256, 17, 17, 16, 128),      # hub filter size
+    (200, 300, 17, 17, 48, 320),      # non-dividing in both dims
+])
+def test_conv_kernel_matches_plain(card, h, w, fh, fw, sh, bw):
+    rng = np.random.default_rng(1)
+    x, f = _randn(rng, (h, w), card), _randn(rng, (fh, fw), card)
+    before = cv.launches
+    out = cv.conv2d(x, f, strip_h=sh, block_w=bw)
+    torch.cuda.synchronize()
+    assert cv.launches == before + 1
+    torch.testing.assert_close(out, cv.conv2d_plain(x, f), rtol=1e-3,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("h,w,sh,bw,tb", [
+    (64, 128, 32, 128, 1), (64, 128, 32, 128, 2), (64, 128, 32, 128, 4),
+    (256, 512, 64, 128, 16),
+])
+def test_hotspot_kernel_matches_plain(card, h, w, sh, bw, tb):
+    rng = np.random.default_rng(3)
+    t, p = _randn(rng, (h, w), card), _randn(rng, (h, w), card, 0.1)
+    before = hs.launches
+    out = hs.hotspot(t, p, strip_h=sh, block_w=bw, t_block=tb)
+    torch.cuda.synchronize()
+    assert hs.launches == before + 1
+    torch.testing.assert_close(out, hs.hotspot_plain(t, p, t_block=tb),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("nchan,nt,ndm,bdm,bt", [
+    (32, 768, 24, 8, 256), (32, 768, 24, 4, 192), (32, 768, 24, 16, 128),
+    (48, 1000, 40, 12, 384),          # non-dividing dm and time tiles
+])
+def test_dedisp_kernel_matches_plain(card, nchan, nt, ndm, bdm, bt):
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (nchan, nt + dd.MAX_DELAY), card)
+    delays = dd.make_delays(nchan, ndm, device=card)
+    before = dd.launches
+    out = dd.dedisperse(x, delays, block_dm=bdm, block_t=bt)
+    torch.cuda.synchronize()
+    assert dd.launches == before + 1
+    assert out.shape == (ndm, nt)
+    torch.testing.assert_close(out, dd.dedisperse_plain(x, delays),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_hub_kernels_reject_before_launch_on_card(card):
+    x = torch.zeros(64, 64, device=card)
+    before = cv.launches
+    with pytest.raises(cv.ConfigRejected):
+        cv.conv2d(x, torch.zeros(35, 3, device=card), strip_h=8, block_w=96)
+    assert cv.launches == before
+    before = hs.launches
+    with pytest.raises(hs.ConfigRejected):
+        hs.hotspot(x, x, strip_h=48, block_w=64, t_block=1)
+    assert hs.launches == before
 
 
 def test_budget_scan_kernel_bit_identical_to_plain(card):

@@ -1,0 +1,242 @@
+"""The port's convolution, hotspot and dedispersion against the reference.
+
+On the CPU each wrapper takes its kernel's plain PyTorch version. Both the
+plain version and the CPU wrapper are held here against the reference's
+Pallas kernel in interpret mode, on the same numpy-seeded arrays, with the
+tolerances of tests/test_kernels.py: 1e-3 for the convolution (a 289-tap
+float32 sum), 1e-4 for hotspot and dedispersion. The spaces, config ids,
+cost-model workloads and delay table must equal the reference's exactly.
+The CUDA kernels themselves are compared with the plain versions on the
+card by chip_smoke.py and tests/test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.cache import result_to_json as ref_result_to_json
+from repro.core.costmodel import estimate as ref_estimate
+from repro.core.devices import HUB_DEVICES as REF_DEVICES
+from repro.core.record import merge_shards as ref_merge_shards
+from repro.kernels import convolution as ref_cv
+from repro.kernels import dedispersion as ref_dd
+from repro.kernels import hotspot as ref_hs
+from repro_torch.core import record
+from repro_torch.core.budget import Budget
+from repro_torch.core.cache import result_to_json
+from repro_torch.core.costmodel import estimate
+from repro_torch.core.devices import DEVICES_BY_NAME
+from repro_torch.core.runner import LiveRunner
+from repro_torch.kernels import HUB_KERNELS, get_kernel
+from repro_torch.kernels import convolution as cv
+from repro_torch.kernels import dedispersion as dd
+from repro_torch.kernels import hotspot as hs
+
+CONV_CASES = [  # tests/test_kernels.py's sweep
+    (64, 128, 5, 5, 32, 128),
+    (96, 130, 3, 7, 48, 96),          # padded width
+    (128, 256, 17, 17, 16, 128),      # hub filter size
+]
+HOT_T_BLOCKS = [1, 2, 4]
+DEDISP_TILINGS = [(8, 256), (4, 192), (16, 128), (12, 384)]
+
+PAIRS = [(cv, ref_cv, 3360), (hs, ref_hs, 5040), (dd, ref_dd, 4320)]
+NAMES = {cv: "convolution", hs: "hotspot", dd: "dedispersion"}
+
+
+def _randn(seed, shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+
+# ------------------------------------------------------- kernel arithmetic
+@pytest.mark.parametrize("h,w,fh,fw,sh,bw", CONV_CASES)
+def test_conv_matches_pallas_interpret(h, w, fh, fw, sh, bw):
+    x, f = _randn(1, (h, w)), _randn(2, (fh, fw))
+    ref = np.asarray(ref_cv.conv2d(jnp.asarray(x), jnp.asarray(f), strip_h=sh,
+                                   block_w=bw, interpret=True))
+    xt, ft = torch.from_numpy(x), torch.from_numpy(f)
+    before = cv.launches
+    for out in (cv.conv2d_plain(xt, ft),
+                cv.conv2d(xt, ft, strip_h=sh, block_w=bw)):
+        assert out.dtype == torch.float32 and out.shape == (h, w)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-3, atol=1e-3)
+    assert cv.launches == before
+
+
+@pytest.mark.parametrize("tb", HOT_T_BLOCKS)
+def test_hotspot_matches_pallas_interpret(tb):
+    t, p = _randn(3, (64, 128)), _randn(4, (64, 128), 0.1)
+    ref = np.asarray(ref_hs.hotspot(jnp.asarray(t), jnp.asarray(p),
+                                    strip_h=32, block_w=128, t_block=tb,
+                                    interpret=True))
+    tt, pt = torch.from_numpy(t), torch.from_numpy(p)
+    before = hs.launches
+    for out in (hs.hotspot_plain(tt, pt, t_block=tb),
+                hs.hotspot(tt, pt, strip_h=32, block_w=128, t_block=tb)):
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+    # the plain version is the reference's oracle, operation for operation
+    assert np.array_equal(hs.hotspot_plain(tt, pt, t_block=tb).numpy(),
+                          np.asarray(ref_hs.hotspot_ref(
+                              jnp.asarray(t), jnp.asarray(p), t_block=tb)))
+    assert hs.launches == before
+
+
+@pytest.mark.parametrize("bdm,bt", DEDISP_TILINGS)
+def test_dedispersion_matches_pallas_interpret(bdm, bt):
+    x = _randn(5, (32, 768 + dd.MAX_DELAY))
+    delays = np.asarray(ref_dd.make_delays(32, 24))
+    ref = np.asarray(ref_dd.dedisperse(jnp.asarray(x), jnp.asarray(delays),
+                                       block_dm=bdm, block_t=bt,
+                                       interpret=True))
+    xt, dt = torch.from_numpy(x), torch.from_numpy(delays.copy())
+    before = dd.launches
+    for out in (dd.dedisperse_plain(xt, dt),
+                dd.dedisperse(xt, dt, block_dm=bdm, block_t=bt)):
+        assert out.shape == ref.shape == (24, 768)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+    assert dd.launches == before
+
+
+def test_dedispersion_clamps_delays_like_dynamic_slice():
+    """A delay past MAX_DELAY reads the last in-range segment, as the
+    reference's clamped ``dynamic_slice`` start does."""
+    x = _randn(6, (4, 128 + dd.MAX_DELAY))
+    delays = np.full((4, 3), dd.MAX_DELAY + 40, np.int32)
+    ref = np.asarray(ref_dd.dedisperse(jnp.asarray(x), jnp.asarray(delays),
+                                       block_dm=3, block_t=128,
+                                       interpret=True))
+    out = dd.dedisperse(torch.from_numpy(x), torch.from_numpy(delays),
+                        block_dm=3, block_t=128)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("nchan,ndm", [(32, 24), (256, 256), (7, 13),
+                                       (64, 96)])
+def test_make_delays_equals_reference_exactly(nchan, ndm):
+    ours = dd.make_delays(nchan, ndm)
+    ref = np.asarray(ref_dd.make_delays(nchan, ndm))
+    assert ours.dtype == torch.int32
+    assert np.array_equal(ours.numpy(), ref)
+
+
+# -------------------------------------------------- spaces and cost model
+@pytest.mark.parametrize("ours,ref,size", PAIRS)
+def test_space_identical_to_reference(ours, ref, size):
+    a, b = ours.space(), ref.space()
+    assert a.size == b.size == size
+    assert [(t.name, t.values) for t in a.tunables] == \
+        [(t.name, t.values) for t in b.tunables]
+    assert a.valid_configs == b.valid_configs
+    assert [a.config_id(c) for c in a.valid_configs] == \
+        [b.config_id(c) for c in b.valid_configs]
+    assert ours.SMOKE_PROBLEM == ref.SMOKE_PROBLEM
+    assert ours.BYTES == ref.BYTES
+    smoke_a = get_kernel(NAMES[ours]).space()
+    smoke_b = ref.space(**ref.SMOKE_PROBLEM)
+    assert smoke_a.valid_configs == smoke_b.valid_configs
+
+
+def test_hub_constants_equal_reference():
+    assert (cv.HUB_H, cv.HUB_W, cv.HUB_FH, cv.HUB_FW) == \
+        (ref_cv.HUB_H, ref_cv.HUB_W, ref_cv.HUB_FH, ref_cv.HUB_FW)
+    assert (hs.HUB_H, hs.HUB_W, hs.HUB_STEPS) == \
+        (ref_hs.HUB_H, ref_hs.HUB_W, ref_hs.HUB_STEPS)
+    assert (hs.C_CENTER, hs.C_NEIGH, hs.C_POWER) == \
+        (ref_hs.C_CENTER, ref_hs.C_NEIGH, ref_hs.C_POWER)
+    assert (dd.HUB_NCHAN, dd.HUB_NTIME, dd.HUB_NDM, dd.MAX_DELAY) == \
+        (ref_dd.HUB_NCHAN, ref_dd.HUB_NTIME, ref_dd.HUB_NDM,
+         ref_dd.MAX_DELAY)
+
+
+@pytest.mark.parametrize("ours,ref,size", PAIRS)
+def test_workload_matches_reference(ours, ref, size):
+    space = ours.space()
+    for conf in space.valid_configs[::379]:
+        d = space.as_dict(conf)
+        for dev in REF_DEVICES:
+            a = estimate(ours.workload(), d, DEVICES_BY_NAME[dev.name], "x")
+            b = ref_estimate(ref.workload(), d, dev, "x")
+            assert (a.status, a.time_s, a.compile_s) == \
+                (b.status, b.time_s, b.compile_s)
+
+
+# ---------------------------------------------------------------- fitting
+@pytest.mark.parametrize("ours,ref,size", PAIRS)
+def test_every_hub_tiling_fits(ours, ref, size):
+    """The kernels walk a tile too large for one block in sub-tiles, so
+    no tiling of the hub spaces is rejected (the GEMM's 7,096 of 10,140
+    are)."""
+    space = ours.space()
+    assert all(ours.fits(space.as_dict(c)) for c in space.valid_configs)
+
+
+def test_fits_rejects_what_the_kernels_cannot_run():
+    assert not cv.fits({"strip_h": 8, "block_w": 96}, {"fh": 35, "fw": 3})
+    assert cv.fits({"strip_h": 8, "block_w": 96}, {"fh": 33, "fw": 33})
+    assert not hs.fits({"strip_h": 48, "block_w": 128, "t_block": 1})
+    assert not hs.fits({"strip_h": 64, "block_w": 128, "t_block": 64},
+                       {"h": 64, "w": 128})
+    assert not dd.fits({"block_dm": 8, "block_t": 128}, {"nchan": 4096})
+    assert dd.fits({"block_dm": 8, "block_t": 128}, {"nchan": 3000})
+
+
+def test_rejections_raise_before_launch_on_the_cpu():
+    """A tiling ``fits`` refuses raises ``ConfigRejected`` on CPU tensors
+    too, so a CPU recording stores it as a failed config, like the card."""
+    x = torch.zeros(64, 64)
+    with pytest.raises(cv.ConfigRejected):
+        cv.conv2d(x, torch.zeros(35, 3), strip_h=8, block_w=96)
+    with pytest.raises(hs.ConfigRejected):
+        hs.hotspot(x, x, strip_h=48, block_w=64, t_block=1)
+    with pytest.raises(dd.ConfigRejected):
+        dd.dedisperse(torch.zeros(4096, 600), torch.zeros(4096, 2,
+                                                          dtype=torch.int32),
+                      block_dm=1, block_t=128)
+    assert issubclass(cv.ConfigRejected, ValueError)
+    space = cv.space()
+    runner = LiveRunner(space, lambda conf: cv.conv2d(
+        x, torch.zeros(35, 3), strip_h=conf["strip_h"],
+        block_w=conf["block_w"]), Budget(max_evals=1), repeats=1)
+    assert runner.run(space.valid_configs[0]).status == "error"
+
+
+def test_make_live_without_cuda_raises_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    for mod in (cv, hs, dd):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.make_live()
+
+
+# ------------------------------------------------------ record and merge
+@pytest.mark.parametrize("name", ["convolution", "hotspot", "dedispersion"])
+def test_cpu_record_merge_round_trip(tmp_path, name):
+    """A live recording at SMOKE_PROBLEM on the CPU (the plain versions);
+    its shard merges to the same cache through the reference's
+    ``merge_shards``, over the registry space."""
+    out = str(tmp_path / f"{name}.json.gz")
+    spec = record.RecordSpec.create(name, target="cpu", max_evals=12,
+                                    repeats=1, seed=2)
+    cache = record.record_cache(spec, out)
+    assert (cache.kernel, cache.device) == (name, "cpu")
+    assert len(cache.results) == 12
+    assert cache.space.size == get_kernel(name).space().size
+    assert all(r.status == "ok" and len(r.times_s) == 1
+               for r in cache.results.values())
+    shard = record.shard_path(out[:-len(".json.gz")], 0)
+    ref = ref_merge_shards([shard])
+    assert {k: result_to_json(r) for k, r in cache.results.items()} == \
+        {k: ref_result_to_json(r) for k, r in ref.results.items()}
+    assert (ref.kernel, ref.device) == (name, "cpu")
+    merged = record.merge_shards([shard], space=record.registry_space(
+        name, spec.problem_dict))
+    assert list(merged.results) == list(cache.results)
+
+
+def test_registry_holds_the_four_hub_kernels():
+    assert sorted(HUB_KERNELS) == ["convolution", "dedispersion", "gemm",
+                                   "hotspot"]
+    for name, mod in HUB_KERNELS.items():
+        spec = get_kernel(name)
+        assert spec.module is mod and spec.tier == "hub"
