@@ -18,7 +18,13 @@ Phases (any failure ends the script with a non-zero exit):
      float32 term); the convolution, hotspot (t_block 1, 4, 16) and
      dedispersion (a dividing and a non-dividing tiling) kernels at
      tests/test_kernels.py's shapes and at the hub size, within its
-     tolerances (1e-3, 1e-4, 1e-4); the budget scan over 1024 runs of
+     tolerances (1e-3, 1e-4, 1e-4); flash attention at its test shapes
+     (GQA group 2; causal, non-causal, window 64; float32 and bf16, RTOL)
+     and at starcoder2-7b's width (36 q heads over 4 kv heads, 4096
+     tokens, d 128, float32, causal) at a small and the largest tiling;
+     the SSD scan at its test shapes (chunks 32, 64, 128) and at
+     mamba2-130m's width (24 heads x 8 sequences of 4096, P 64, N 128) at
+     chunks 128 and 512, within 3e-3; the budget scan over 1024 runs of
      full-space permutations of the GEMM's 10,140 configs with budgets
      that run out mid-row (bit-identical); times by CUDA events (median of
      10) beside each kernel's bound and, where one PyTorch call computes
@@ -26,20 +32,25 @@ Phases (any failure ends the script with a non-zero exit):
   4. the main path, part one: a live random-search recording of each hub
      kernel at its hub size (GEMM 4096^3 bf16, convolution 4096^2 with a
      17x17 filter, hotspot 4096^2, dedispersion 256 channels x 16384
-     samples x 256 dms; 3 repeats per config, the number of evaluations
-     cut per kernel) through ``record_cache``, shard -> merge -> a cache
-     file labelled with the card's name;
+     samples x 256 dms; the number of evaluations cut per kernel) and of
+     each framework kernel at its full width over its whole space (flash
+     attention 50 configs, SSD 30), 3 repeats per config, through
+     ``record_cache``, shard -> merge -> a cache file labelled with the
+     card's name;
   5. the main path, part two: ``replay_many`` of 1024 runs over the GEMM's
      recording, then ``make_scorer`` + ``evaluate_strategy`` (25 repeats)
-     for random search and the genetic algorithm, on the GEMM's recording
-     and on all four (Eq. 3 aggregate), with the torch engine on the card
-     and with the numpy engine; scores must be bit-identical;
+     for random search, the genetic algorithm, simulated annealing and
+     PSO, on the GEMM's recording and on all six (Eq. 3 aggregate), with
+     the torch engine on the card and with the numpy engine; scores must
+     be bit-identical;
   6. the main path, part three: ``exhaustive_hypertune`` of the genetic
-     algorithm over its 108-point Table III grid across the four
+     algorithm over its 108-point Table III grid across the six
      recordings (3 repeats, cut from the paper's 25), torch engine; the
      best, closest-to-mean and worst hyperconfigurations are rescored with
-     the numpy engine and must be bit-identical. A wall-clock limit fails
-     the phase if it runs over.
+     the numpy engine and must be bit-identical.
+
+Before phase 5 every recording is checked to let a tuning run end
+(``ends_check``); phases 5 and 6 each fail past a wall-clock limit.
 
 Kernel launch counters are set to 0 just before phase 4 and read just
 after phase 6; each kernel must have launched there. The line before the
@@ -88,17 +99,32 @@ HUB_TILINGS = [(128, 128, 64), (96, 160, 48)]  # aligned, irregular
 SCAN_RUNS = 1024
 REPEATS = 25
 # the live recordings' budgets: fresh evaluations, and measured seconds as
-# a cap (a few tilings take tens of ms a launch). Sizes are the hub's.
+# a cap (a few tilings take tens of ms a launch). Sizes are the hub's;
+# the framework kernels' sizes are full model widths: starcoder2-7b's
+# attention (src/repro/configs/starcoder2_7b.py: 36 q heads over 4 kv heads,
+# d_head 128) on one 4096-token sequence, and mamba2-130m's SSD
+# (src/repro/configs/mamba2_130m.py: 24 heads, head dim 64, state 128) over
+# 8 sequences of 4096, the reference workload()'s own default.
 HUB_PROBLEMS = {
     "gemm": {"m": HUB, "n": HUB, "k": HUB},
     "convolution": {"h": HUB, "w": HUB, "fh": 17, "fw": 17},
     "hotspot": {"h": HUB, "w": HUB},
     "dedispersion": {"nchan": 256, "ntime": 16384, "ndm": 256},
+    "flash_attention": {"bh": 36, "bh_kv": 4, "seq": 4096, "d": 128},
+    "ssd": {"bh": 24 * 8, "seq": 4096, "p": 64, "n": 128},
 }
 RECORD_EVALS = {"gemm": 512, "convolution": 1024, "hotspot": 1024,
-                "dedispersion": 1024}
+                "dedispersion": 1024, "flash_attention": 50, "ssd": 30}
 RECORD_SECONDS = {"gemm": 150.0, "convolution": 60.0, "hotspot": 60.0,
-                  "dedispersion": 60.0}
+                  "dedispersion": 60.0, "flash_attention": 60.0,
+                  "ssd": 60.0}
+# (block_q, block_kv) and chunk: a small tiling, and the largest
+ATTN_TILINGS = [(128, 128), (1024, 2048)]
+SSD_CHUNKS = (128, 512)
+SSD_TOL = 3e-3               # tests/test_kernels.py
+STRATEGIES = ("random_search", "genetic_algorithm", "simulated_annealing",
+              "pso")
+SCORE_LIMIT_S = 300          # phase 5 fails past this wall-clock limit
 HYPERTUNE_REPEATS = 3        # the paper's 25, cut to fit the time limit
 HYPERTUNE_LIMIT_S = 300      # phase 6 fails past this wall-clock limit
 
@@ -122,6 +148,29 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def spread_ms(fn, reps: int = 7, warmup: int = 1) -> tuple:
+    """``(median, min, max, host median)`` over ``reps`` CUDA-event timings
+    of one ``fn()`` each; host is the wall until ``fn`` returns, before the
+    card finishes. A host median near the event median says the host's
+    launches, not the card, set the time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return (statistics.median(times), min(times), max(times),
+            statistics.median(host))
 
 
 def nbytes(*tensors) -> int:
@@ -335,6 +384,101 @@ def check_dedisp(device: str) -> dict:
                       hub_err, ms, plain_ms, ops_ms, bytes_ms, None)
 
 
+def check_attention(device: str) -> dict:
+    """Flash-attention kernel vs ``attention_plain`` at tests/test_kernels.py's
+    shapes, then at starcoder2-7b's width at a small and the largest tiling;
+    times at the small one, with SDPA (float32, TF32 off) as the
+    yardstick."""
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(6)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (randn(rng, s, device).to(dtype)
+                   for s in ((4, 256, 64), (2, 256, 64), (2, 256, 64)))
+        for causal, window in ((True, None), (False, None), (True, 64)):
+            agree(f"flash_attention 4x256x64 over 2 kv heads "
+                  f"{str(dtype)[6:]} causal {causal} window {window} tiles "
+                  f"(128,128)",
+                  fa.flash_attention(q, k, v, block_q=128, block_kv=128,
+                                     causal=causal, window=window).float(),
+                  fa.attention_plain(q, k, v, causal=causal,
+                                     window=window).float(), RTOL[dtype])
+    p = HUB_PROBLEMS["flash_attention"]
+    bh, bh_kv, s, d = p["bh"], p["bh_kv"], p["seq"], p["d"]
+    q = randn(rng, (bh, s, d), device)
+    k, v = randn(rng, (bh_kv, s, d), device), randn(rng, (bh_kv, s, d), device)
+    ref = fa.attention_plain(q, k, v, causal=True)
+    err = max(agree(f"flash_attention {bh}x{s}x{d} over {bh_kv} kv heads "
+                    f"causal tiles ({bq},{bkv})",
+                    fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv),
+                    ref, RTOL[torch.float32])
+              for bq, bkv in ATTN_TILINGS)
+    del ref
+    flops = 4.0 * bh * s * s * d * 0.5
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = (nbytes(q, k, v) + q.numel() * 4) / PEAK_BYTES * 1e3
+    times = {t: time_ms(lambda: fa.flash_attention(
+        q, k, v, block_q=t[0], block_kv=t[1])) for t in ATTN_TILINGS}
+    plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, causal=True),
+                       reps=3, warmup=1)
+    # yardstick only: one PyTorch call computing the same function
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(q[None], k[None], v[None],
+                                      is_causal=True, enable_gqa=True))
+    for (bq, bkv), ms in times.items():
+        print(f"  flash_attention {bh}x{s}x{d} causal ({bq},{bkv}): kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s)")
+    print(f"  flash_attention plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
+          f"ms, bound {max(ops_ms, bytes_ms):.4f} ms (operations "
+          f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
+    return kernel_row("flash_attention", "src/repro_torch/kernels/csrc/"
+                      "flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:39", err,
+                      times[ATTN_TILINGS[0]], plain_ms, ops_ms, bytes_ms,
+                      library_ms)
+
+
+def check_ssd(device: str) -> dict:
+    """SSD kernel vs ``ssd_plain`` at tests/test_kernels.py's shapes and
+    distributions, then at mamba2-130m's width on the recording's inputs
+    at chunks 128 and 512; times at both, the JSON row at chunk 128."""
+    from repro_torch.kernels import ssd
+    rng = np.random.default_rng(7)
+    softplus = torch.nn.functional.softplus
+    bh, l, pp, n = 3, 256, 16, 8
+    x, b, c = (randn(rng, s, device) for s in ((bh, l, pp), (bh, l, n),
+                                               (bh, l, n)))
+    dt = softplus(randn(rng, (bh, l), device)) * 0.1
+    a = -softplus(randn(rng, (bh,), device))
+    for chunk in (32, 64, 128):
+        agree(f"ssd {bh}x{l} P {pp} N {n} chunk {chunk}",
+              ssd.ssd_scan(x, dt, a, b, c, chunk=chunk),
+              ssd.ssd_plain(x, dt, a, b, c, chunk=chunk), SSD_TOL)
+    p = HUB_PROBLEMS["ssd"]
+    bh, l, pp, n = p["bh"], p["seq"], p["p"], p["n"]
+    args = ssd.live_inputs(p, device)
+    flops = ssd.needed_flops(**p)
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = (nbytes(*args) + args[0].numel() * 4) / PEAK_BYTES * 1e3
+    row = None
+    for chunk in SSD_CHUNKS:
+        err = agree(f"ssd {bh}x{l} P {pp} N {n} chunk {chunk}",
+                    ssd.ssd_scan(*args, chunk=chunk),
+                    ssd.ssd_plain(*args, chunk=chunk), SSD_TOL)
+        ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk))
+        plain = spread_ms(lambda: ssd.ssd_plain(*args, chunk=chunk))
+        print(f"  ssd {bh}x{l} chunk {chunk}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s of the needed "
+              f"{flops / 1e9:.2f} GFLOP), plain median {plain[0]:.4f} ms "
+              f"(min {plain[1]:.4f}, max {plain[2]:.4f}, host enqueue "
+              f"median {plain[3]:.4f}), bound {max(ops_ms, bytes_ms):.4f} "
+              f"ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+        if chunk == SSD_CHUNKS[0]:
+            row = kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
+                             "src/repro/kernels/ssd.py:39", err, ms,
+                             plain[0], ops_ms, bytes_ms, None)
+    return row
+
+
 def synthetic_gemm_cache(seed: int = 0):
     """A full cache over the GEMM's 10,140 configs, made from a seed: the
     budget scan's input at the size the main path gives it."""
@@ -414,7 +558,7 @@ def check_scan(device: str, runs: int, seed: int = 1) -> dict:
 # ------------------------------------------------------------- phases 4-6
 def record(out_dir: pathlib.Path, device: str, name: str, problem: dict,
            evals: int, max_seconds: float):
-    """Live random-search recording of one hub kernel through
+    """Live random-search recording of one kernel through
     ``record_cache``."""
     from repro_torch.core.record import RecordSpec, record_cache
     from repro_torch.kernels import get_kernel
@@ -484,13 +628,14 @@ def replay_and_score(cache, out: pathlib.Path, device: str, runs: int,
 
 
 def score_both_engines(caches, device: str, repeats: int) -> None:
-    """``evaluate_strategy`` of random search and the GA over ``caches``
-    (Eq. 3 aggregate) with the torch engine on ``device`` and with the
-    numpy engine: scores, curves and charges must be bit-identical."""
+    """``evaluate_strategy`` of every strategy of ``STRATEGIES`` over
+    ``caches`` (Eq. 3 aggregate) with the torch engine on ``device`` and
+    with the numpy engine: scores, curves and charges must be
+    bit-identical."""
     from repro_torch.core.methodology import evaluate_strategy, make_scorer
     from repro_torch.core.parallel import StrategyFactory
     print(f"  scoring over {', '.join(c.kernel for c in caches)}:")
-    for name in ("random_search", "genetic_algorithm"):
+    for name in STRATEGIES:
         factory = StrategyFactory.create(name, {})
         reports = {}
         for engine in ("torch", "vectorized"):
@@ -499,7 +644,7 @@ def score_both_engines(caches, device: str, repeats: int) -> None:
             reports[engine] = evaluate_strategy(factory, scorers,
                                                 repeats=repeats, seed=0)
             r = reports[engine]
-            print(f"  {name:17s} engine {engine:10s} score {r.score!r} "
+            print(f"  {name:19s} engine {engine:10s} score {r.score!r} "
                   f"({r.fresh_evals} fresh evals, {r.simulated_seconds!r} "
                   f"simulated s in {r.wall_seconds:.3f} s wall)")
         a, b = reports["torch"], reports["vectorized"]
@@ -510,31 +655,44 @@ def score_both_engines(caches, device: str, repeats: int) -> None:
             fail(f"{name}: torch-engine scores differ from the numpy engine")
 
 
-def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
-    """Exhaustive GA hypertuning (Table III grid) across ``caches`` with
-    the torch engine; the best, closest-to-mean and worst configurations
-    rescored with the numpy engine must be bit-identical. Fails past
-    ``limit_s`` seconds of wall clock."""
-    from repro_torch.core.hypertuner import (exhaustive_hypertune,
-                                             score_hyperconfig)
+def ends_check(caches) -> None:
+    """Refuse a recording on which a tuning run might never end. A run ends
+    only at a fresh evaluation asked once its budget is spent, so the GA,
+    simulated annealing and PSO, which revisit configurations for free,
+    restart forever unless the methodology's budget runs out before the
+    last fresh configuration (ROADMAP Queue 3)."""
     from repro_torch.core.methodology import make_scorer
-    scorers = [make_scorer(c, engine="torch", device=device) for c in caches]
-    for s in scorers:
-        # the GA restarts forever unless the budget runs out before its last
-        # fresh configuration (ROADMAP Queue 3): refuse such a recording
+    for s in (make_scorer(c, engine="vectorized") for c in caches):
         charges = s.cache.columns.charge_s
         total = float(charges.sum())
         print(f"  {s.name}: budget {s.budget_s:.4f} s of {total:.4f} s "
               f"total charge, {s.n_total} configs")
         if not s.budget_s < total - float(charges.max()):
             fail(f"{s.name}: the methodology's budget reaches the whole "
-                 f"charge; the GA would never end")
+                 f"charge; a tuning run would never end")
 
+
+def time_limit(phase: int, limit_s: int):
+    """Fail the script when the rest of ``phase`` outlasts ``limit_s``
+    seconds of wall clock (``signal.alarm(0)`` lifts the limit)."""
     def over_time(signum, frame):
-        fail(f"phase 6 ran over its {limit_s} s wall-clock limit")
+        fail(f"phase {phase} ran over its {limit_s} s wall-clock limit")
 
     signal.signal(signal.SIGALRM, over_time)
     signal.alarm(limit_s)
+
+
+def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
+    """Exhaustive GA hypertuning (Table III grid) across ``caches`` with
+    the torch engine; the best, closest-to-mean and worst configurations
+    rescored with the numpy engine must be bit-identical. Fails past
+    ``limit_s`` seconds of wall clock. The recordings must have passed
+    ``ends_check``."""
+    from repro_torch.core.hypertuner import (exhaustive_hypertune,
+                                             score_hyperconfig)
+    from repro_torch.core.methodology import make_scorer
+    scorers = [make_scorer(c, engine="torch", device=device) for c in caches]
+    time_limit(6, limit_s)
     try:
         t0 = time.perf_counter()
         res = exhaustive_hypertune("genetic_algorithm", scorers,
@@ -578,7 +736,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import cuda
     from repro_torch.core.engine_torch import replay as rp
-    from repro_torch.kernels import HUB_KERNELS
+    from repro_torch.kernels import ALL_KERNELS
 
     device = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -607,17 +765,18 @@ def main() -> int:
     print("[3] kernels against their plain versions")
     kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),
                check_hotspot(device), check_dedisp(device),
+               check_attention(device), check_ssd(device),
                check_scan(device, SCAN_RUNS)]
 
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for mod in HUB_KERNELS.values():
+    for mod in ALL_KERNELS.values():
         mod.launches = 0
     rp.launches = 0
     print("[4] main path: live recordings of the four hub kernels at their "
-          "hub sizes")
+          "hub sizes and of the two framework kernels at full model width")
     caches, paths = {}, {}
-    for name in ("gemm", "convolution", "hotspot", "dedispersion"):
+    for name in HUB_PROBLEMS:
         t0 = time.perf_counter()
         caches[name], paths[name] = record(
             out_dir, device, name, HUB_PROBLEMS[name], RECORD_EVALS[name],
@@ -627,16 +786,21 @@ def main() -> int:
     loaded = [CacheFile.load(str(paths[name])) for name in caches]
     print("[5] main path: replay and scoring")
     t0 = time.perf_counter()
-    replay_and_score(caches["gemm"], paths["gemm"], device, SCAN_RUNS,
-                     REPEATS)
-    score_both_engines(loaded, device, REPEATS)
+    ends_check(loaded)
+    time_limit(5, SCORE_LIMIT_S)
+    try:
+        replay_and_score(caches["gemm"], paths["gemm"], device, SCAN_RUNS,
+                         REPEATS)
+        score_both_engines(loaded, device, REPEATS)
+    finally:
+        signal.alarm(0)
     print(f"  [phase 5: {time.perf_counter() - t0:.1f} s]")
-    print("[6] main path: exhaustive GA hypertuning across the four "
-          "recordings")
+    print(f"[6] main path: exhaustive GA hypertuning across the "
+          f"{len(loaded)} recordings")
     t0 = time.perf_counter()
     hypertune(loaded, device, HYPERTUNE_REPEATS, HYPERTUNE_LIMIT_S)
     print(f"  [phase 6: {time.perf_counter() - t0:.1f} s]")
-    launches = {name: mod.launches for name, mod in HUB_KERNELS.items()}
+    launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
     launches["budget_scan"] = rp.launches
     print(f"  launches on the main path: {launches}")
     if not all(launches.values()):

@@ -39,7 +39,11 @@ from .core.methodology import evaluate_strategy, make_scorer
 from .core.parallel import (CampaignExecutor, CampaignJournal,
                             StrategyFactory, report_from_json)
 from .core.strategies import STRATEGIES
-from .kernels import KERNELS
+from .kernels import FRAMEWORK_KERNELS, HUB_KERNELS, KERNELS
+
+KERNEL_HELP = (f"a registered kernel: hub tier {', '.join(HUB_KERNELS)}; "
+               f"framework tier {', '.join(FRAMEWORK_KERNELS)}")
+STRATEGY_HELP = f"one of {', '.join(STRATEGIES)}"
 
 
 def _parse_kv(text: str | None, flag: str) -> dict:
@@ -272,7 +276,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command", required=True)
 
     def add_record_args(pp, bruteforce: bool) -> None:
-        pp.add_argument("--kernel", required=True, choices=sorted(KERNELS))
+        pp.add_argument("--kernel", required=True, choices=sorted(KERNELS),
+                        help=KERNEL_HELP)
         pp.add_argument("--device", choices=("cuda", "cpu"), default=None,
                         help="where the kernel runs (default: the card); "
                              "cpu times the kernel's plain version")
@@ -283,7 +288,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="observations per fresh live evaluation")
         if not bruteforce:
             pp.add_argument("--strategy", default="random_search",
-                            choices=sorted(STRATEGIES))
+                            choices=sorted(STRATEGIES),
+                            help=f"recording strategy, {STRATEGY_HELP}")
             pp.add_argument("--hyperparams", default=None, metavar="K=V,...")
         pp.add_argument("--max-evals", type=int,
                         default=None if bruteforce else 64,
@@ -340,7 +346,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     ps = sub.add_parser("simulate", help="score one strategy configuration "
                         "with the methodology (Sec. III-B)")
-    ps.add_argument("--strategy", required=True, choices=sorted(STRATEGIES))
+    ps.add_argument("--strategy", required=True, choices=sorted(STRATEGIES),
+                    help=STRATEGY_HELP)
     ps.add_argument("--hyperparams", default=None, metavar="K=V,...",
                     help="strategy hyperparameters (default: DEFAULTS)")
     add_space_args(ps)
@@ -348,7 +355,9 @@ def build_parser() -> argparse.ArgumentParser:
 
     ph = sub.add_parser("hypertune", help="exhaustive hyperparameter "
                         "campaign (Table III), parallel + resumable")
-    ph.add_argument("--strategy", required=True, choices=sorted(STRATEGIES))
+    ph.add_argument("--strategy", required=True, choices=sorted(STRATEGIES),
+                    help=f"the strategy whose Table III grid is searched, "
+                         f"{STRATEGY_HELP}")
     ph.add_argument("--journal", default=None, metavar="PATH",
                     help="JSONL checkpoint; rerun with the same path to "
                          "resume an interrupted campaign")
@@ -361,9 +370,12 @@ def build_parser() -> argparse.ArgumentParser:
 
     pm = sub.add_parser("meta", help="meta-strategy hyperparameter "
                         "optimization (Eq. 4, Table IV)")
-    pm.add_argument("--strategy", required=True, choices=sorted(STRATEGIES))
+    pm.add_argument("--strategy", required=True, choices=sorted(STRATEGIES),
+                    help=f"the strategy being tuned, {STRATEGY_HELP}")
     pm.add_argument("--meta-strategy", required=True,
-                    choices=sorted(STRATEGIES))
+                    choices=sorted(STRATEGIES),
+                    help=f"the strategy that searches its hyperparameters, "
+                         f"{STRATEGY_HELP}")
     pm.add_argument("--max-hp-evals", type=int, default=50)
     pm.add_argument("--table3-grid", action="store_true",
                     help="search the small Table III grid instead of the "

@@ -43,6 +43,8 @@ SOURCES = {
     "convolution": "kernels/csrc/convolution.cu",
     "hotspot": "kernels/csrc/hotspot.cu",
     "dedispersion": "kernels/csrc/dedispersion.cu",
+    "flash_attention": "kernels/csrc/flash_attention.cu",
+    "ssd": "kernels/csrc/ssd.cu",
     "budget_scan": "core/engine_torch/csrc/budget_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

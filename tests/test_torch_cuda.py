@@ -10,8 +10,10 @@ Tolerances: the GEMM ``RTOL[dtype]·√k`` of tests/test_kernels.py (the
 kernel sums over K in another order than the plain float32 matmul); the
 convolution 1e-3 and hotspot and dedispersion 1e-4, tests/test_kernels.py's
 (their kernels keep the plain versions' order of operations without FMA
-contraction, and chip_smoke.py reports their max |err|); the budget scan
-and the replay engine none — bit-identical.
+contraction, and chip_smoke.py reports their max |err|); flash attention
+``RTOL[dtype]`` and the SSD scan 3e-3, tests/test_kernels.py's (online
+softmax and chunked sums reorder the adds); the budget scan and the replay
+engine none — bit-identical.
 """
 import random
 
@@ -29,8 +31,10 @@ from repro_torch.core.strategies import get_strategy
 from repro_torch.core.tunable import tunables_from_dict
 from repro_torch.kernels import convolution as cv
 from repro_torch.kernels import dedispersion as dd
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gm
 from repro_torch.kernels import hotspot as hs
+from repro_torch.kernels import ssd
 
 pytestmark = pytest.mark.cuda
 
@@ -158,6 +162,51 @@ def test_hub_kernels_reject_before_launch_on_card(card):
     assert hs.launches == before
 
 
+@pytest.mark.parametrize("group,tiling", [(2, (128, 128)), (3, (64, 256)),
+                                          (9, (256, 128))])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(card, dtype, causal, window,
+                                              group, tiling):
+    """tests/test_kernels.py's shapes with GQA groups 2, 3 and 9
+    (starcoder2-7b's), window 64 under block_kv 128 and 256."""
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (2 * group, 256, 64), card).to(dtype)
+    k, v = (_randn(rng, (2, 256, 64), card).to(dtype) for _ in range(2))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, block_q=tiling[0], block_kv=tiling[1],
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), fa.attention_plain(q, k, v, causal=causal,
+                                        window=window).float(),
+        rtol=RTOL[dtype], atol=RTOL[dtype])
+
+
+@pytest.mark.parametrize("bh,l,p,n,chunk", [
+    (3, 256, 16, 8, 32), (3, 256, 16, 8, 64), (3, 256, 16, 8, 128),
+    (2, 1024, 80, 128, 512),          # two 64-column slices, the largest chunk
+    (2, 384, 64, 33, 96),             # a chunk that is not a multiple of 64
+])
+def test_ssd_kernel_matches_plain(card, bh, l, p, n, chunk):
+    rng = np.random.default_rng(7)
+    softplus = torch.nn.functional.softplus
+    x = _randn(rng, (bh, l, p), card)
+    dt = softplus(_randn(rng, (bh, l), card)) * 0.1
+    a = -softplus(_randn(rng, (bh,), card))
+    b, c = _randn(rng, (bh, l, n), card), _randn(rng, (bh, l, n), card)
+    before = ssd.launches
+    out = ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    torch.testing.assert_close(out, ssd.ssd_plain(x, dt, a, b, c,
+                                                  chunk=chunk),
+                               rtol=3e-3, atol=3e-3)
+
+
 def test_budget_scan_kernel_bit_identical_to_plain(card):
     cache = _cache()
     compiled, cols = cache.space.compiled, cache.columns
@@ -176,7 +225,8 @@ def test_budget_scan_kernel_bit_identical_to_plain(card):
 
 def test_torch_engine_on_card_matches_numpy_engine(card):
     cache = _cache()
-    for name in ("random_search", "genetic_algorithm"):
+    for name in ("random_search", "genetic_algorithm", "simulated_annealing",
+                 "pso"):
         reports = [evaluate_strategy(lambda: get_strategy(name),
                                      [make_scorer(cache, engine=engine,
                                                   device=card)],

@@ -1,0 +1,303 @@
+"""The port's flash attention and SSD scan against the reference.
+
+On the CPU each wrapper takes its kernel's plain PyTorch version. Both the
+plain version and the CPU wrapper are held here against the reference's
+Pallas kernel in interpret mode, on the same numpy-seeded arrays, with the
+tolerances of tests/test_kernels.py: ``RTOL[dtype]`` (2e-4 float32, 2e-2
+bf16) for attention, whose plain version sums in another order and, in
+bf16, does not round p before the p v product as the kernel does; 3e-3 for
+the SSD scan, whose chunked sums differ in order from the step-by-step
+recurrence. The spaces, config ids and cost-model workloads must equal the
+reference's exactly. The CUDA kernels themselves are compared with the
+plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
+"""
+import inspect
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.cache import result_to_json as ref_result_to_json
+from repro.core.costmodel import estimate as ref_estimate
+from repro.core.devices import HUB_DEVICES as REF_DEVICES
+from repro.core.record import merge_shards as ref_merge_shards
+from repro.kernels import flash_attention as ref_fa
+from repro.kernels import ssd as ref_ssd
+from repro_torch.core import record
+from repro_torch.core.cache import result_to_json
+from repro_torch.core.costmodel import estimate
+from repro_torch.core.devices import DEVICES_BY_NAME
+from repro_torch.kernels import get_kernel
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd
+
+RTOL = {"float32": 2e-4, "bfloat16": 2e-2}
+SSD_TOL = 3e-3
+# full model widths: starcoder2-7b's attention on one 4096-token sequence,
+# mamba2-130m's SSD over 8 sequences of 4096
+FULL = {fa: {"bh": 36, "bh_kv": 4, "seq": 4096, "d": 128},
+        ssd: {"bh": 24 * 8, "seq": 4096, "p": 64, "n": 128}}
+PAIRS = [(fa, ref_fa, 50), (ssd, ref_ssd, 30)]
+NAMES = {fa: "flash_attention", ssd: "ssd"}
+
+
+def _randn(rng, shape):
+    return rng.standard_normal(shape, dtype=np.float32)
+
+
+def _kw(fn, problem):
+    """``problem`` cut to the keyword arguments ``fn`` declares."""
+    return {k: v for k, v in problem.items()
+            if k in inspect.signature(fn).parameters}
+
+
+def _softplus(x):
+    return np.log1p(np.exp(x)).astype(np.float32)
+
+
+# ------------------------------------------------------- kernel arithmetic
+@pytest.mark.parametrize("tiling", [(128, 128), (64, 256)])
+@pytest.mark.parametrize("group", [2, 3])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_pallas_interpret(dtype, causal, window,
+                                                  group, tiling):
+    """tests/test_kernels.py's sweep (4 q heads over 2 kv heads, 256
+    tokens, d 64), also with a GQA group of 3, and window 64 under a
+    block_kv of 128 or 256: rows whose first kv tiles are all masked."""
+    rng = np.random.default_rng(6)
+    q = _randn(rng, (2 * group, 256, 64))
+    k, v = _randn(rng, (2, 256, 64)), _randn(rng, (2, 256, 64))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    bq, bkv = tiling
+    ref = np.asarray(ref_fa.flash_attention(
+        *(jnp.asarray(x).astype(jdt) for x in (q, k, v)), block_q=bq,
+        block_kv=bkv, causal=causal, window=window, interpret=True),
+        np.float32)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    before = fa.launches
+    for out in (fa.attention_plain(tq, tk, tv, causal=causal, window=window),
+                fa.flash_attention(tq, tk, tv, block_q=bq, block_kv=bkv,
+                                   causal=causal, window=window)):
+        assert out.dtype == tdt and out.shape == q.shape
+        np.testing.assert_allclose(out.float().numpy(), ref,
+                                   rtol=RTOL[dtype], atol=RTOL[dtype])
+    assert fa.launches == before
+
+
+def test_attention_plain_equals_reference_oracle():
+    """The plain version is the reference's ``attention_ref``, operation for
+    operation, up to float32 reassociation in the two products."""
+    rng = np.random.default_rng(2)
+    q, k, v = _randn(rng, (6, 128, 32)), _randn(rng, (2, 128, 32)), \
+        _randn(rng, (2, 128, 32))
+    for causal, window in ((True, None), (False, 16), (True, 1)):
+        ref = np.asarray(ref_fa.attention_ref(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+            window=window))
+        out = fa.attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                 causal=causal, window=window)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128])
+def test_ssd_matches_pallas_interpret_and_recurrence(chunk):
+    """tests/test_kernels.py's sweep: (3, 256, 16, 8), dt and -a softplus of
+    a normal."""
+    rng = np.random.default_rng(7)
+    bh, l, p, n = 3, 256, 16, 8
+    x = _randn(rng, (bh, l, p))
+    dt = _softplus(_randn(rng, (bh, l))) * np.float32(0.1)
+    a = -_softplus(_randn(rng, (bh,)))
+    b, c = _randn(rng, (bh, l, n)), _randn(rng, (bh, l, n))
+    args = tuple(jnp.asarray(t) for t in (x, dt, a, b, c))
+    pallas = np.asarray(ref_ssd.ssd_scan(*args, chunk=chunk, interpret=True))
+    recurrence = np.asarray(ref_ssd.ssd_ref(*args))
+    targs = tuple(torch.from_numpy(t) for t in (x, dt, a, b, c))
+    before = ssd.launches
+    for out in (ssd.ssd_plain(*targs, chunk=chunk),
+                ssd.ssd_scan(*targs, chunk=chunk)):
+        assert out.dtype == torch.float32 and out.shape == x.shape
+        for ref in (pallas, recurrence):
+            np.testing.assert_allclose(out.numpy(), ref, rtol=SSD_TOL,
+                                       atol=SSD_TOL)
+    assert ssd.launches == before
+
+
+def test_ssd_plain_survives_an_overflowing_upper_triangle():
+    """Above the diagonal exp(cum_i - cum_j) overflows to inf for a steep
+    decay; the mask selects 0 there, so no inf times 0 turns into NaN."""
+    rng = np.random.default_rng(8)
+    x, b, c = (_randn(rng, s) for s in ((2, 128, 8), (2, 128, 4),
+                                        (2, 128, 4)))
+    dt = np.full((2, 128), 2.0, np.float32)
+    a = np.full((2,), -1.0, np.float32)
+    args = tuple(torch.from_numpy(t) for t in (x, dt, a, b, c))
+    out = ssd.ssd_plain(*args, chunk=128)
+    assert torch.isfinite(out).all()
+    ref = np.asarray(ref_ssd.ssd_ref(*(jnp.asarray(t)
+                                       for t in (x, dt, a, b, c))))
+    np.testing.assert_allclose(out.numpy(), ref, rtol=SSD_TOL, atol=SSD_TOL)
+
+
+# -------------------------------------------------- spaces and cost model
+@pytest.mark.parametrize("width", ["smoke", "full"])
+@pytest.mark.parametrize("ours,ref,size", PAIRS)
+def test_space_identical_to_reference(ours, ref, size, width):
+    problem = ours.SMOKE_PROBLEM if width == "smoke" else FULL[ours]
+    a, b = get_kernel(NAMES[ours]).space(problem), \
+        ref.space(**_kw(ref.space, problem))
+    if width == "full":
+        assert a.size == b.size == size
+    assert [(t.name, t.values) for t in a.tunables] == \
+        [(t.name, t.values) for t in b.tunables]
+    assert a.valid_configs == b.valid_configs
+    assert [a.config_id(c) for c in a.valid_configs] == \
+        [b.config_id(c) for c in b.valid_configs]
+    assert ours.SMOKE_PROBLEM == ref.SMOKE_PROBLEM
+
+
+@pytest.mark.parametrize("width", ["smoke", "full"])
+@pytest.mark.parametrize("ours,ref,size", PAIRS)
+def test_workload_matches_reference(ours, ref, size, width):
+    problem = ours.SMOKE_PROBLEM if width == "smoke" else FULL[ours]
+    spec = get_kernel(NAMES[ours])
+    space = spec.space(problem)
+    wl_ref = ref.workload(**_kw(ref.workload, problem))
+    for conf in space.valid_configs:
+        d = space.as_dict(conf)
+        for dev in REF_DEVICES:
+            x = estimate(spec.workload(problem), d, DEVICES_BY_NAME[dev.name],
+                         "x")
+            y = ref_estimate(wl_ref, d, dev, "x")
+            assert (x.status, x.time_s, x.compile_s) == \
+                (y.status, y.time_s, y.compile_s)
+
+
+def test_full_width_workloads_give_the_bounds_operation_counts():
+    """The bounds chip_smoke.py reports rest on these counts."""
+    wl = fa.workload(bh=36, seq=4096, d=128)
+    assert wl.flops({}) == 4.0 * 36 * 4096 ** 2 * 128 * 0.5   # 154.6 GFLOP
+    assert round(ssd.needed_flops(**FULL[ssd]) / 1e9, 1) == 25.8
+    assert ssd.needed_flops(**FULL[ssd]) == 4.0 * 192 * 4096 * 128 * 64
+    # the cost model counts each chunk's whole Q x Q square on top
+    wl = ssd.workload(**FULL[ssd])
+    assert round(wl.flops({"chunk": 128}) / 1e9, 1) == 64.4
+    assert round(wl.flops({"chunk": 512}) / 1e9) == 180
+    assert all(wl.flops({"chunk": q}) > ssd.needed_flops(**FULL[ssd])
+               for q in (32, 64, 128, 256, 512))
+
+
+# ---------------------------------------------------------------- fitting
+@pytest.mark.parametrize("ours,ref,size", PAIRS)
+def test_every_full_width_tiling_fits(ours, ref, size):
+    """The kernels walk a tile too large for one block in sub-tiles, so
+    no tiling of the full-width spaces is rejected."""
+    space = get_kernel(NAMES[ours]).space(FULL[ours])
+    assert space.size == size
+    assert all(ours.fits(space.as_dict(c), FULL[ours])
+               for c in space.valid_configs)
+
+
+def test_fits_rejects_what_the_kernels_cannot_run():
+    assert not fa.fits({"block_q": 64, "block_kv": 128}, {"d": 256})
+    assert fa.fits({"block_q": 64, "block_kv": 128}, {"d": 128})
+    assert not ssd.fits({"chunk": 128}, {"n": 256})
+    assert ssd.fits({"chunk": 12032}, {"n": 128})
+    assert not ssd.fits({"chunk": 12288}, {"n": 128})
+    with pytest.raises(fa.ConfigRejected):
+        fa.flash_attention(*(torch.zeros(2, 128, 160) for _ in range(3)),
+                           block_q=64, block_kv=128)
+    with pytest.raises(ssd.ConfigRejected):
+        ssd.ssd_scan(torch.zeros(1, 64, 4), torch.zeros(1, 64),
+                     torch.zeros(1), torch.zeros(1, 64, 130),
+                     torch.zeros(1, 64, 130), chunk=32)
+    assert issubclass(fa.ConfigRejected, ValueError)
+
+
+def test_wrappers_keep_the_reference_asserts_and_check_inputs():
+    q = torch.zeros(3, 128, 16)
+    with pytest.raises(AssertionError):
+        fa.flash_attention(q, torch.zeros(2, 128, 16), torch.zeros(2, 128, 16))
+    with pytest.raises(AssertionError):
+        fa.flash_attention(q, q, q, block_q=96, block_kv=128)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, q, q, block_q=64, block_kv=64, window=0)
+    with pytest.raises(ValueError, match="positive"):
+        fa.flash_attention(q, q, q, block_q=-64, block_kv=64)
+    with pytest.raises(ValueError, match="float32 or bf16"):
+        fa.flash_attention(q.double(), q.double(), q.double())
+    x = torch.zeros(2, 96, 4)
+    args = (x, torch.zeros(2, 96), torch.zeros(2), torch.zeros(2, 96, 3),
+            torch.zeros(2, 96, 3))
+    with pytest.raises(AssertionError):
+        ssd.ssd_scan(*args, chunk=64)
+    with pytest.raises(ValueError, match="float32"):
+        ssd.ssd_scan(x.double(), *args[1:], chunk=32)
+    with pytest.raises(ValueError, match="positive"):
+        ssd.ssd_scan(*args, chunk=0)
+    with pytest.raises(ValueError, match="BH, L"):
+        ssd.ssd_scan(x, torch.zeros(2, 95), *args[2:], chunk=32)
+
+
+def test_make_live_without_cuda_raises_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    for mod in (fa, ssd):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.make_live()
+
+
+@pytest.mark.parametrize("mod", [fa, ssd])
+def test_make_live_inputs_follow_the_reference_distributions(mod):
+    """Seeded inputs on the CPU: the same seed gives the same tensors, and
+    the SSD's dt and a lie in the reference's ranges."""
+    seen = []
+    real = {fa: fa.flash_attention, ssd: ssd.ssd_scan}[mod]
+
+    def spy(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+
+    name = {fa: "flash_attention", ssd: "ssd_scan"}[mod]
+    conf = get_kernel(NAMES[mod]).space().as_dict(
+        get_kernel(NAMES[mod]).space().valid_configs[0])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod, name, spy)
+        for seed in (3, 3, 4):
+            mod.make_live({"seed": seed}, device="cpu")(conf)
+    assert all(torch.equal(a, b) for a, b in zip(seen[0], seen[1]))
+    assert not torch.equal(seen[0][0], seen[2][0])
+    assert all(t.dtype == torch.float32 for t in seen[0])
+    if mod is ssd:
+        _, dt, a, _, _ = seen[0]
+        assert 0.001 <= dt.min() and dt.max() <= 0.1
+        assert -1.5 <= a.min() and a.max() <= -0.5
+
+
+# ------------------------------------------------------ record and merge
+@pytest.mark.parametrize("name", ["flash_attention", "ssd"])
+def test_cpu_record_merge_round_trip(tmp_path, name):
+    """A live recording at SMOKE_PROBLEM on the CPU (the plain versions);
+    its shard merges to the same cache through the reference's
+    ``merge_shards``, over the registry space."""
+    out = str(tmp_path / f"{name}.json.gz")
+    spec = record.RecordSpec.create(name, target="cpu", max_evals=8,
+                                    repeats=1, seed=2)
+    cache = record.record_cache(spec, out)
+    assert (cache.kernel, cache.device) == (name, "cpu")
+    assert len(cache.results) == 8
+    assert cache.space.size == get_kernel(name).space().size
+    assert all(r.status == "ok" and len(r.times_s) == 1
+               for r in cache.results.values())
+    shard = record.shard_path(out[:-len(".json.gz")], 0)
+    ref = ref_merge_shards([shard])
+    assert {k: result_to_json(r) for k, r in cache.results.items()} == \
+        {k: ref_result_to_json(r) for k, r in ref.results.items()}
+    assert (ref.kernel, ref.device) == (name, "cpu")
+    merged = record.merge_shards([shard], space=record.registry_space(
+        name, spec.problem_dict))
+    assert list(merged.results) == list(cache.results)
+

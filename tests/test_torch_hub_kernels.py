@@ -18,6 +18,8 @@ from repro.core.cache import result_to_json as ref_result_to_json
 from repro.core.costmodel import estimate as ref_estimate
 from repro.core.devices import HUB_DEVICES as REF_DEVICES
 from repro.core.record import merge_shards as ref_merge_shards
+from repro.kernels import ALL_KERNELS as REF_ALL_KERNELS
+from repro.kernels import KERNELS as REF_KERNELS
 from repro.kernels import convolution as ref_cv
 from repro.kernels import dedispersion as ref_dd
 from repro.kernels import hotspot as ref_hs
@@ -27,7 +29,8 @@ from repro_torch.core.cache import result_to_json
 from repro_torch.core.costmodel import estimate
 from repro_torch.core.devices import DEVICES_BY_NAME
 from repro_torch.core.runner import LiveRunner
-from repro_torch.kernels import HUB_KERNELS, get_kernel
+from repro_torch.kernels import (ALL_KERNELS, FRAMEWORK_KERNELS, HUB_KERNELS,
+                                 get_kernel)
 from repro_torch.kernels import convolution as cv
 from repro_torch.kernels import dedispersion as dd
 from repro_torch.kernels import hotspot as hs
@@ -235,8 +238,19 @@ def test_cpu_record_merge_round_trip(tmp_path, name):
 
 
 def test_registry_holds_the_four_hub_kernels():
+    """The hub tier holds the paper's four kernels; the framework tier the
+    reference's two others, and ``ALL_KERNELS`` both, as in the reference's
+    registry."""
     assert sorted(HUB_KERNELS) == ["convolution", "dedispersion", "gemm",
                                    "hotspot"]
     for name, mod in HUB_KERNELS.items():
         spec = get_kernel(name)
         assert spec.module is mod and spec.tier == "hub"
+    assert sorted(FRAMEWORK_KERNELS) == ["flash_attention", "ssd"]
+    for name, mod in FRAMEWORK_KERNELS.items():
+        spec = get_kernel(name)
+        assert spec.module is mod and spec.tier == "framework"
+    assert ALL_KERNELS == {**HUB_KERNELS, **FRAMEWORK_KERNELS}
+    assert list(ALL_KERNELS) == list(REF_ALL_KERNELS)
+    assert {n: get_kernel(n).tier for n in ALL_KERNELS} == \
+        {n: s.tier for n, s in REF_KERNELS.items()}
