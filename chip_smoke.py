@@ -10,10 +10,15 @@ no result, when no CUDA device is present or the repository is missing.
 Phases (any failure ends the script with a non-zero exit):
 
   1. the card's name and power limit, as ``nvidia-smi`` prints them;
-  2. the build of every kernel from the ``.cu`` sources, in parallel;
+  2. the build of every kernel from the ``.cu`` sources, in parallel, and
+     a check that the GEMM library's SASS holds wgmma (``HGMMA``) and TMA
+     (``UTMALDG``) instructions;
   3. each kernel against its plain PyTorch version on the card: the GEMM at
      tests/test_kernels.py's shapes in float32 and bf16 and at the hub size
-     4096^3 bf16 (``gemm_agrees``, element by element: float32 within
+     4096^3 bf16 at six tilings (the hub's, an irregular one, and four
+     classes of the bf16 launch plan; each plan printed, each tiling
+     timed) and at the unaligned 4095x4093x4090 that the wrapper pads
+     (``gemm_agrees``, element by element: float32 within
      RTOL·(|ref| + sqrt(k)), bf16 within one bf16 ulp of |ref| plus the
      float32 term); the convolution, hotspot (t_block 1, 4, 16) and
      dedispersion (a dividing and a non-dividing tiling) kernels at
@@ -96,6 +101,14 @@ GEMM_SHAPES = [  # (m, n, k, block_m, block_n, block_k)
     (200, 130, 90, 64, 128, 128),
 ]
 HUB_TILINGS = [(128, 128, 64), (96, 160, 48)]  # aligned, irregular
+# bf16 plan classes at the hub size (kernels/gemm.py, ``plan``): two wgmma
+# pieces of 256, a 16-row tile padded to 64, one stage, two consumers of
+# 64 x 256 (the widest accumulator); then an unaligned shape near the hub
+# size, which the wrapper pads to multiples of 8
+HUB_CLASS_TILINGS = [(64, 512, 64), (16, 256, 128), (128, 128, 384),
+                     (128, 256, 64)]
+HUB_UNALIGNED = (HUB - 1, HUB - 3, HUB - 6)
+SASS_NEEDED = ("HGMMA", "UTMALDG")  # wgmma and TMA loads in the GEMM's SASS
 SCAN_RUNS = 1024
 REPEATS = 25
 # the live recordings' budgets: fresh evaluations, and measured seconds as
@@ -177,6 +190,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# ----------------------------------------------------------------- phase 2
+def check_sass(lib: pathlib.Path) -> None:
+    """Fail unless the GEMM library's SASS holds wgmma (``HGMMA``) and TMA
+    loads (``UTMALDG``): the bf16 path runs on the tensor cores, fed by
+    TMA."""
+    from repro_torch import cuda
+    sass = subprocess.run([cuda.toolkit("cuobjdump"), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120)
+    if sass.returncode:
+        fail(f"cuobjdump failed on {lib.name}: {sass.stderr.strip()}")
+    counts = {op: sass.stdout.count(op) for op in SASS_NEEDED}
+    print(f"  gemm SASS: {counts}")
+    missing = [op for op, count in counts.items() if not count]
+    if missing:
+        fail(f"the GEMM library's SASS lacks {missing}")
+
+
 # ----------------------------------------------------------------- phase 3
 def gemm_agrees(out: torch.Tensor, ref: torch.Tensor, k: int,
                 dtype: torch.dtype) -> tuple:
@@ -222,9 +252,19 @@ def check_gemm(device: str, shapes, hub: int) -> dict:
 
     cases = [(m, n, k, t, dtype) for dtype in (torch.float32, torch.bfloat16)
              for m, n, k, *t in shapes]
-    cases += [(hub, hub, hub, t, torch.bfloat16) for t in HUB_TILINGS]
+    cases += [(hub, hub, hub, t, torch.bfloat16)
+              for t in HUB_TILINGS + HUB_CLASS_TILINGS]
+    cases.append((*HUB_UNALIGNED, HUB_TILINGS[0], torch.bfloat16))
     hub_err = 0.0
     for m, n, k, (bm, bn, bk), dtype in cases:
+        pl = gm.plan({"block_m": bm, "block_n": bn, "block_k": bk}, m, n, k,
+                     dtype)
+        print(f"  plan {str(dtype)[6:]} {m}x{n}x{k} ({bm},{bn},{bk}): "
+              + (f"wgmma N {pl.wgmma_n} x {pl.pieces}, consumers "
+                 f"{pl.warpgroups} x {pl.frags} frags, stages {pl.stages}, "
+                 f"swizzle A {pl.swizzle_a} B {pl.swizzle_b}, "
+                 f"padded {pl.padded}" if pl.path == "wgmma" else
+                 f"fma, {pl.threads} threads"))
         a, b, c0 = operands(m, n, k, dtype)
         out = gm.gemm(a, b, c0, block_m=bm, block_n=bn, block_k=bk,
                       alpha=0.5, beta=1.5)
@@ -237,16 +277,21 @@ def check_gemm(device: str, shapes, hub: int) -> dict:
               f"{worst:.4g} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"gemm disagrees with gemm_plain at {m}x{n}x{k} {dtype}")
-        if m == hub:
+        if m >= hub - 8:
             hub_err = max(hub_err, err)
     a, b, c0 = operands(hub, hub, hub, torch.bfloat16)
+    flops = 2.0 * hub ** 3 + 3.0 * hub * hub
+    times = {t: time_ms(lambda: gm.gemm(a, b, c0, block_m=t[0], block_n=t[1],
+                                        block_k=t[2], alpha=0.5, beta=1.5))
+             for t in HUB_TILINGS + HUB_CLASS_TILINGS}
+    for t, t_ms in times.items():
+        print(f"  gemm {hub}^3 bf16 {t}: kernel {t_ms:.4f} ms "
+              f"({flops / t_ms / 1e9:.1f} TFLOP/s)")
     bm, bn, bk = HUB_TILINGS[0]
-    ms = time_ms(lambda: gm.gemm(a, b, c0, block_m=bm, block_n=bn,
-                                 block_k=bk, alpha=0.5, beta=1.5))
+    ms = times[HUB_TILINGS[0]]
     plain_ms = time_ms(lambda: gm.gemm_plain(a, b, c0, alpha=0.5, beta=1.5))
     # yardstick only: one PyTorch call computing the same function
     library_ms = time_ms(lambda: torch.addmm(c0, a, b, beta=1.5, alpha=0.5))
-    flops = 2.0 * hub ** 3 + 3.0 * hub * hub
     moved = nbytes(a, b, c0) + hub * hub * 2
     ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
     print(f"  gemm {hub}^3 bf16 ({bm},{bn},{bk}): kernel {ms:.4f} ms "
@@ -761,6 +806,7 @@ def main() -> int:
         for line in cuda.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    check_sass(cuda.library_path("gemm"))
 
     print("[3] kernels against their plain versions")
     kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),

@@ -13,8 +13,9 @@ Rules every entry point of the port follows:
     falls back to the CPU by itself.
   * A kernel library is built at first use into ``build/repro_torch/`` at
     the root of the checkout (one ``nvcc`` per source, all started
-    together by ``build``), keyed by a hash of the source and the flags,
-    so an edited source rebuilds and an unchanged one loads as it is.
+    together by ``build``), keyed by a hash of the source, the headers
+    beside it and the flags, so an edited source or header rebuilds and
+    an unchanged one loads as it is.
   * A wrapper raises when its C entry point returns a non-zero
     ``cudaGetLastError()`` after the launch. A launch the CUDA driver
     refuses before it runs (too many threads, registers or shared memory)
@@ -99,12 +100,15 @@ def device_label(device: str) -> str:
 
 
 # ------------------------------------------------------------------- builds
-def _nvcc() -> str:
-    exe = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+def toolkit(tool: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH,
+    else in ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``)."""
+    exe = shutil.which(tool) or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", tool)
     if not os.path.exists(exe):
-        raise RuntimeError("nvcc not found (looked on PATH and in "
-                           "$CUDA_HOME/bin); the CUDA kernels cannot be built")
+        raise RuntimeError(f"{tool} not found (looked on PATH and in "
+                           f"$CUDA_HOME/bin); the CUDA kernels cannot be "
+                           f"built or inspected")
     return exe
 
 
@@ -113,9 +117,14 @@ def _flags(name: str) -> tuple:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where kernel ``name``'s shared library is (or will be) built."""
-    src = (PACKAGE_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(_flags(name)).encode())
+    """Where kernel ``name``'s shared library is (or will be) built: keyed
+    by the source, every header (``*.cuh``) beside it and the flags, so an
+    edited header rebuilds too."""
+    src = PACKAGE_DIR / SOURCES[name]
+    digest = hashlib.sha256()
+    for path in [src, *sorted(src.parent.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -141,7 +150,7 @@ def build(names: Iterable[str] | None = None) -> dict[str, float]:
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_flags(name), "-o", str(tmp),
+            cmd = [toolkit(), *_flags(name), "-o", str(tmp),
                    str(PACKAGE_DIR / SOURCES[name])]
             log = open(out.with_suffix(".log"), "w")
             procs[name] = (subprocess.Popen(cmd, stdout=log,

@@ -88,6 +88,59 @@ def test_gemm_kernel_matches_plain(card, dtype, m, n, k, bm, bn, bk):
         a, b, c0, alpha=0.5, beta=1.5).float(), rtol=tol, atol=tol)
 
 
+# one tiling for each class of value the bf16 plan maps onto the hardware
+# (kernels/gemm.py, ``plan``), at a shape that is ragged against every tile
+WGMMA_CLASSES = [
+    (8, 64, 32),       # block_m 8: rows padded to 64, one consumer
+    (48, 256, 64),     # block_m 48, wgmma N 256
+    (96, 160, 48),     # block_m 96 -> 128 rows; N 160; 32-byte swizzle
+    (512, 64, 32),     # block_m 512: two TMA boxes of rows, 4 frags each
+    (64, 512, 64),     # block_n 512 = 2 x 256
+    (192, 128, 64),    # three consumers of 64 x 128
+    (384, 64, 32),     # three consumers holding two fragments each
+    (256, 96, 128),    # N 96, two fragments a consumer
+    (128, 128, 384),   # one stage; block_k 384 = two TMA boxes of K
+    (64, 64, 768),     # block_k 768 = three TMA boxes of K, one stage
+]
+
+
+@pytest.mark.parametrize("bm,bn,bk", WGMMA_CLASSES)
+def test_gemm_wgmma_classes_match_plain(card, bm, bn, bk):
+    m, n, k = 300, 520, 1000
+    conf = {"block_m": bm, "block_n": bn, "block_k": bk}
+    assert gm.plan(conf, m, n, k, torch.bfloat16) is not None
+    rng = np.random.default_rng(2)
+    a, b, c0 = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                .to(device=card, dtype=torch.bfloat16)
+                for s in ((m, k), (k, n), (m, n)))
+    before = gm.launches
+    out = gm.gemm(a, b, c0, block_m=bm, block_n=bn, block_k=bk, alpha=0.5,
+                  beta=1.5)
+    torch.cuda.synchronize()
+    assert gm.launches == before + 1
+    tol = RTOL[torch.bfloat16] * k ** 0.5
+    torch.testing.assert_close(out.float(), gm.gemm_plain(
+        a, b, c0, alpha=0.5, beta=1.5).float(), rtol=tol, atol=tol)
+
+
+def test_gemm_bf16_takes_unaligned_views(card):
+    """TMA reads from 16-byte aligned addresses: contiguous views that
+    start one element into their storage are copied first."""
+    m, n, k = 128, 136, 96
+    rng = np.random.default_rng(4)
+    a, b, c0 = (torch.from_numpy(rng.standard_normal(r * c + 1,
+                                                     dtype=np.float32))
+                .to(device=card, dtype=torch.bfloat16)[1:].view(r, c)
+                for r, c in ((m, k), (k, n), (m, n)))
+    assert all(t.data_ptr() % 16 for t in (a, b, c0))
+    out = gm.gemm(a, b, c0, block_m=64, block_n=128, block_k=64, alpha=0.5,
+                  beta=1.5)
+    torch.cuda.synchronize()
+    tol = RTOL[torch.bfloat16] * k ** 0.5
+    torch.testing.assert_close(out.float(), gm.gemm_plain(
+        a, b, c0, alpha=0.5, beta=1.5).float(), rtol=tol, atol=tol)
+
+
 def test_gemm_rejects_before_launch_on_card(card):
     x = torch.zeros(64, 64, dtype=torch.bfloat16, device=card)
     before = gm.launches
