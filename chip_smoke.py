@@ -10,9 +10,10 @@ no result, when no CUDA device is present or the repository is missing.
 Phases (any failure ends the script with a non-zero exit):
 
   1. the card's name and power limit, as ``nvidia-smi`` prints them;
-  2. the build of every kernel from the ``.cu`` sources, in parallel, and
-     a check that the GEMM library's SASS holds wgmma (``HGMMA``) and TMA
-     (``UTMALDG``) instructions;
+  2. the build of every kernel from the ``.cu`` sources, in parallel, a
+     check that the GEMM library's SASS holds wgmma (``HGMMA``) and TMA
+     (``UTMALDG``) instructions, and ptxas' registers and spills of each
+     (G, T) instantiation of the dedispersion kernel (a spill fails);
   3. each kernel against its plain PyTorch version on the card: the GEMM at
      tests/test_kernels.py's shapes in float32 and bf16 and at the hub size
      4096^3 bf16 at six tilings (the hub's, an irregular one, and four
@@ -20,10 +21,14 @@ Phases (any failure ends the script with a non-zero exit):
      timed) and at the unaligned 4095x4093x4090 that the wrapper pads
      (``gemm_agrees``, element by element: float32 within
      RTOL·(|ref| + sqrt(k)), bf16 within one bf16 ulp of |ref| plus the
-     float32 term); the convolution, hotspot (t_block 1, 4, 16) and
-     dedispersion (a dividing and a non-dividing tiling) kernels at
-     tests/test_kernels.py's shapes and at the hub size, within its
-     tolerances (1e-3, 1e-4, 1e-4); flash attention at its test shapes
+     float32 term); the convolution and hotspot (t_block 1, 4, 16)
+     kernels at tests/test_kernels.py's shapes and at the hub size, within
+     its tolerances (1e-3, 1e-4); dedispersion bit-identical at its test
+     shape (also with an adversarial delay table and with ntime not a
+     multiple of 4) and at the hub size at five tilings, each with its
+     launch plan printed and timed, and with the adversarial table at two
+     of them, beside the shared-memory floor; flash attention at its test
+     shapes
      (GQA group 2; causal, non-causal, window 64; float32 and bf16, RTOL)
      and at starcoder2-7b's width (36 q heads over 4 kv heads, 4096
      tokens, d 128, float32, causal) at a small and the largest tiling;
@@ -41,7 +46,8 @@ Phases (any failure ends the script with a non-zero exit):
      each framework kernel at its full width over its whole space (flash
      attention 50 configs, SSD 30), 3 repeats per config, through
      ``record_cache``, shard -> merge -> a cache file labelled with the
-     card's name;
+     card's name; each recording's per-config time (min, median, max) and
+     its fastest and slowest tilings;
   5. the main path, part two: ``replay_many`` of 1024 runs over the GEMM's
      recording, then ``make_scorer`` + ``evaluate_strategy`` (25 repeats)
      for random search, the genetic algorithm, simulated annealing and
@@ -67,6 +73,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import signal
 import statistics
 import subprocess
@@ -84,6 +91,7 @@ PEAK_F32_FLOPS = 67e12       # float32 outside the tensor cores (an FMA is 2)
 PEAK_F32_ADDS = 33.5e12      # float32 adds a second (one per lane a clock)
 PEAK_F64_FLOPS = 34e12       # float64 outside the tensor cores
 PEAK_BYTES = 3.35e12
+SMEM_WORDS = 132 * 32 * 1.98e9  # shared memory: 32 words a clock an SM
 RTOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 HUB = 4096
 # tests/test_kernels.py's shapes and tolerances of the other hub kernels
@@ -94,7 +102,10 @@ HOT_TOL, CONV_TOL, DEDISP_TOL = 1e-4, 1e-3, 1e-4
 HOT_HUB_TILING = (64, 512)                    # (strip_h, block_w)
 HOT_T_BLOCKS = (1, 4, 16)
 DEDISP_TILINGS = [(8, 256), (4, 192), (16, 128)]
-DEDISP_HUB_TILINGS = [(32, 512), (12, 384)]   # dividing, non-dividing
+# the hub tiling (timed in the JSON row), a non-dividing one, the smallest
+# tile, a T=2 plan and the largest tile
+DEDISP_HUB_TILINGS = [(32, 512), (12, 384), (1, 128), (4, 192), (128, 3968)]
+DEDISP_ADVERSARIAL = [(32, 512), (1, 128)]    # hub tilings, adversarial
 GEMM_SHAPES = [  # (m, n, k, block_m, block_n, block_k)
     (128, 128, 128, 64, 128, 128),
     (192, 256, 320, 96, 128, 64),
@@ -191,6 +202,39 @@ def nbytes(*tensors) -> int:
 
 
 # ----------------------------------------------------------------- phase 2
+def check_dedisp_build(log: str) -> None:
+    """Print the registers and spills of each (G, T) instantiation of the
+    dedispersion kernel from ptxas' ``-v`` report in ``log``; fail on a
+    spill or a missing instantiation."""
+    from repro_torch.kernels import dedispersion as dd
+    rows, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kern = re.search(r"dedisp_kernelILi(\d+)ELi(\d+)E",
+                             entry.group(1))
+            current = tuple(map(int, kern.groups())) if kern else None
+        elif current is not None:
+            for key, pattern in (("stores", r"(\d+) bytes spill stores"),
+                                 ("loads", r"(\d+) bytes spill loads"),
+                                 ("registers", r"Used (\d+) registers")):
+                found = re.search(pattern, line)
+                if found:
+                    rows.setdefault(current, {})[key] = int(found.group(1))
+    for (g, t), row in sorted(rows.items()):
+        print(f"  dedispersion G {g} T {t}: {row.get('registers')} "
+              f"registers, spill stores {row.get('stores')} B, loads "
+              f"{row.get('loads')} B")
+    want = {(g, t) for g in dd.DMS_PER_THREAD for t in dd.SAMPLES_PER_THREAD}
+    if set(rows) != want:
+        fail(f"ptxas reported dedispersion instantiations {sorted(rows)}, "
+             f"not {sorted(want)}")
+    spilled = [k for k, row in rows.items()
+               if row.get("stores", 1) or row.get("loads", 1)]
+    if spilled:
+        fail(f"dedispersion instantiations {spilled} spill registers")
+
+
 def check_sass(lib: pathlib.Path) -> None:
     """Fail unless the GEMM library's SASS holds wgmma (``HGMMA``) and TMA
     loads (``UTMALDG``): the bf16 path runs on the tensor cores, fed by
@@ -392,38 +436,82 @@ def check_hotspot(device: str) -> dict:
     return row
 
 
+def dedisp_equal(what: str, out: torch.Tensor, ref: torch.Tensor) -> float:
+    """``agree`` within DEDISP_TOL, and fail unless bit-identical: the
+    kernel adds the channels in the plain version's order."""
+    err = agree(what, out, ref, DEDISP_TOL)
+    if not torch.equal(out, ref):
+        fail(f"{what} is not bit-identical to dedisperse_plain")
+    return err
+
+
+def adversarial_delays(rng, nchan: int, ndm: int, device: str):
+    """A delay table not monotonic in dm, with values below 0 and above
+    MAX_DELAY that the kernel clamps."""
+    return torch.from_numpy(rng.integers(-100, 700, (nchan, ndm))
+                            .astype(np.int32)).to(device)
+
+
 def check_dedisp(device: str) -> dict:
-    """Dedispersion kernel vs ``dedisperse_plain``; times at the hub size
-    with the dividing tiling."""
+    """Dedispersion kernel vs ``dedisperse_plain``, bit for bit, at the test
+    shape and at the hub size; each hub tiling's plan printed and timed,
+    the JSON row at the first."""
     from repro_torch.kernels import dedispersion as dd
     rng = np.random.default_rng(5)
     nchan, ntime, ndm = 32, 768 + dd.MAX_DELAY, 24
     x = randn(rng, (nchan, ntime), device)
     delays = dd.make_delays(nchan, ndm, device=device)
+    adversarial = adversarial_delays(rng, nchan, ndm, device)
+    x_odd = randn(rng, (nchan, ntime + 1), device)  # 4-byte copies
     for bdm, bt in DEDISP_TILINGS:
-        agree(f"dedispersion {nchan}x{ntime} {ndm} dms tiles ({bdm},{bt})",
-              dd.dedisperse(x, delays, block_dm=bdm, block_t=bt),
-              dd.dedisperse_plain(x, delays), DEDISP_TOL)
+        for what, xs, ds in (("", x, delays),
+                             (" adversarial delays", x, adversarial),
+                             (" ntime+1", x_odd, delays)):
+            dedisp_equal(f"dedispersion {nchan}x{xs.shape[1]} {ndm} dms "
+                         f"tiles ({bdm},{bt}){what}",
+                         dd.dedisperse(xs, ds, block_dm=bdm, block_t=bt),
+                         dd.dedisperse_plain(xs, ds))
     hub = HUB_PROBLEMS["dedispersion"]
     nchan, ntime, ndm = hub["nchan"], hub["ntime"], hub["ndm"]
     x = randn(rng, (nchan, ntime), device)
     delays = dd.make_delays(nchan, ndm, device=device)
     ref = dd.dedisperse_plain(x, delays)
-    hub_err = max(agree(f"dedispersion {nchan}x{ntime} {ndm} dms tiles "
-                        f"({bdm},{bt})",
-                        dd.dedisperse(x, delays, block_dm=bdm, block_t=bt),
-                        ref, DEDISP_TOL)
-                  for bdm, bt in DEDISP_HUB_TILINGS)
-    bdm, bt = DEDISP_HUB_TILINGS[0]
-    ms = time_ms(lambda: dd.dedisperse(x, delays, block_dm=bdm, block_t=bt))
-    plain_ms = time_ms(lambda: dd.dedisperse_plain(x, delays))
     adds = float(nchan * ndm * (ntime - dd.MAX_DELAY))
+    hub_err, times = 0.0, {}
+    for bdm, bt in DEDISP_HUB_TILINGS:
+        pl = dd.plan(bdm, bt, nchan, ndm)
+        print(f"  plan ({bdm},{bt}): G {pl.dms_per_thread} x T "
+              f"{pl.samples_per_thread}, warps {pl.warps_dm} x {pl.warps_t} "
+              f"({pl.threads} threads), sub-tile {pl.group} dms x "
+              f"{pl.sub_t} samples, {pl.stages} stages of up to {pl.chans} "
+              f"channels ({pl.stage_floats} floats), {pl.shared_bytes} B "
+              f"shared")
+        hub_err = max(hub_err, dedisp_equal(
+            f"dedispersion {nchan}x{ntime} {ndm} dms tiles ({bdm},{bt})",
+            dd.dedisperse(x, delays, block_dm=bdm, block_t=bt), ref))
+        times[bdm, bt] = time_ms(lambda: dd.dedisperse(
+            x, delays, block_dm=bdm, block_t=bt))
+        print(f"  dedispersion hub ({bdm},{bt}): kernel "
+              f"{times[bdm, bt]:.4f} ms ({adds / times[bdm, bt] / 1e9:.2f} "
+              f"T adds/s)")
+    adversarial = adversarial_delays(rng, nchan, ndm, device)
+    ref_adv = dd.dedisperse_plain(x, adversarial)
+    for bdm, bt in DEDISP_ADVERSARIAL:
+        dedisp_equal(f"dedispersion {nchan}x{ntime} {ndm} dms tiles "
+                     f"({bdm},{bt}) adversarial delays",
+                     dd.dedisperse(x, adversarial, block_dm=bdm, block_t=bt),
+                     ref_adv)
+    bdm, bt = DEDISP_HUB_TILINGS[0]
+    ms = times[bdm, bt]
+    plain_ms = time_ms(lambda: dd.dedisperse_plain(x, delays))
     ops_ms = adds / PEAK_F32_ADDS * 1e3
     bytes_ms = nbytes(x, delays, ref) / PEAK_BYTES * 1e3
+    floor_ms = adds / SMEM_WORDS * 1e3
     print(f"  dedispersion hub ({bdm},{bt}): kernel {ms:.4f} ms "
           f"({adds / ms / 1e9:.2f} T adds/s), plain {plain_ms:.4f} ms, "
           f"bound {max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, "
-          f"bytes {bytes_ms:.4f})")
+          f"bytes {bytes_ms:.4f}), shared-memory floor {floor_ms:.4f} ms "
+          f"(one word an add at 32 words a clock an SM)")
     return kernel_row("dedispersion", "src/repro_torch/kernels/csrc/"
                       "dedispersion.cu", "src/repro/kernels/dedispersion.py:50",
                       hub_err, ms, plain_ms, ops_ms, bytes_ms, None)
@@ -644,6 +732,13 @@ def record(out_dir: pathlib.Path, device: str, name: str, problem: dict,
           f"{best * 1e3:.4f} ms"
           + (f", {2.0 * HUB ** 3 / best / 1e12:.2f} TFLOP/s"
              if name == "gemm" else ""))
+    worst, slow_key = max(ok)
+    print(f"  per-config time: min {best * 1e3:.4f} ms, median "
+          f"{statistics.median(t for t, _ in ok) * 1e3:.4f} ms, max "
+          f"{worst * 1e3:.4f} ms (slowest "
+          f"{cache.space.as_dict(cache.space.config_from_id(slow_key))}); "
+          f"total charge "
+          f"{sum(r.charge_s for r in cache.results.values()):.2f} s")
     return cache, out
 
 
@@ -807,6 +902,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     check_sass(cuda.library_path("gemm"))
+    check_dedisp_build(cuda.build_log("dedispersion"))
 
     print("[3] kernels against their plain versions")
     kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),

@@ -3,25 +3,39 @@
 Port of ``src/repro/kernels/dedispersion.py``: out[dm, t] = Σ_c x[c, t +
 delay[c, dm]], a gather-reduce over the channels. The Pallas TPU kernel
 ``_dedisp_kernel``/``dedisperse`` becomes the hand-written CUDA kernel
-``csrc/dedispersion.cu`` (its header says what bounds it on the H100 and
-how a tile larger than shared memory and registers is walked);
-``dedisperse`` here is its wrapper and ``dedisperse_plain`` the same
-function in plain PyTorch, summing the channels in order like the
-kernel. ``make_delays`` is a torch copy of the reference's delay table
-(the same int32 values). The search space, the problem sizes and the
-cost-model ``workload()`` are the reference's, unchanged, so config ids
-agree across the two packages.
+``csrc/dedispersion.cu``; ``dedisperse`` here is its wrapper and
+``dedisperse_plain`` the same function in plain PyTorch, summing the
+channels in order like the kernel. ``make_delays`` is a torch copy of the
+reference's delay table (the same int32 values). The search space, the
+problem sizes and the cost-model ``workload()`` are the reference's,
+unchanged, so config ids agree across the two packages.
 
-``block_dm`` and ``block_t`` reach the kernel as runtime arguments;
-``chan_chunk``, ``delay_layout`` and ``time_unroll`` stay cost-model-only.
-Tiles that do not divide (ndm, ntime − MAX_DELAY) are handled by bounds
-checks: the output is the reference's (ndm, ntime − MAX_DELAY), as its
-pad-then-slice gives, with no padded copy. A delay is clamped to
-[0, MAX_DELAY], as the reference's ``dynamic_slice`` clamps its start.
+The kernel (its header has the detail): a block owns one block_dm ×
+block_t output tile and walks it in sub-tiles of ``group`` dms ×
+``sub_t`` samples. Each thread holds G dms × T samples of accumulators
+in registers, the T samples 32 apart so a warp reads 32 consecutive
+words of shared memory. Channels stream through a ring of ``STAGES``
+shared-memory stages filled by ``cp.async``, several channels a stage
+and one barrier a stage; each channel stages only the samples its
+group's delays reach. Every add reads one word of shared memory, so the
+card's shared-memory rate (32 words a clock an SM) bounds it: 0.124 ms
+at the hub size, against the 0.031 ms of its float32 adds.
+
+``plan`` turns a tiling into that launch (G, T, warps, channels a stage,
+shared memory) on the CPU as on the card, or ``None`` where the kernel
+cannot run it; ``fits`` is "``plan`` is not None" and rejects no tiling
+of the hub space. ``block_dm`` and ``block_t`` keep the reference's
+meaning; ``chan_chunk``, ``delay_layout`` and ``time_unroll`` stay
+cost-model-only. Tiles that do not divide (ndm, ntime − MAX_DELAY) are
+handled by bounds checks: the output is the reference's (ndm, ntime −
+MAX_DELAY), as its pad-then-slice gives, with no padded copy. A delay is
+clamped to [0, MAX_DELAY], as the reference's ``dynamic_slice`` clamps
+its start.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Mapping
 
 import numpy as np
@@ -46,10 +60,18 @@ MAX_DELAY = 512  # delay table values are in [0, MAX_DELAY)
 SMOKE_PROBLEM = {"nchan": 32, "ntime": 768 + MAX_DELAY, "ndm": 24}
 
 # limits of csrc/dedispersion.cu (checked against the library when it loads)
-GROUP_DM = 16              # dm accumulators a thread
-SEG = 256 + MAX_DELAY      # staged samples of one channel
+STAGES = 4                 # stages of the cp.async ring
+MAX_THREADS = 256          # threads a block
+MAX_CHANS = 16             # channels a stage
 MAX_SMEM_BYTES = 232448    # dynamic shared memory one block may use
 MAX_GRID_Y = 65535         # dm tiles per launch
+# the kernel's instantiations: dms (G) and samples (T) a thread
+DMS_PER_THREAD = (8, 4, 2, 1)
+SAMPLES_PER_THREAD = (4, 2)
+# how ``plan`` shapes a block
+MAX_WARPS_DM = 4           # warps side by side along dm
+MAX_SUB_T = 512            # samples of a sub-tile
+STAGE_SAMPLES_A_THREAD = 16  # samples a thread stages a stage, halos aside
 
 # kernel launches by ``dedisperse`` (plain-version calls do not count)
 launches = 0
@@ -68,35 +90,106 @@ def make_delays(nchan: int = HUB_NCHAN, ndm: int = HUB_NDM,
 
 
 # ----------------------------------------------------------------- kernel
+@dataclass(frozen=True)
+class Plan:
+    """How csrc/dedispersion.cu runs one tiling.
+
+    A thread holds ``dms_per_thread`` (G) × ``samples_per_thread`` (T)
+    accumulators; ``warps_dm`` × ``warps_t`` warps make a block, which
+    walks its tile in sub-tiles of ``group`` dms × ``sub_t`` samples. Each
+    of the ``stages`` ring stages holds ``stage_floats`` floats: up to
+    ``chans`` channels of ``sub_t`` samples and one MAX_DELAY halo beside
+    them (none where a group is one dm, whose span is ``sub_t``). The
+    block takes ``shared_bytes`` of shared memory: the ring, and the
+    group's delays and each channel's least delay."""
+    dms_per_thread: int
+    samples_per_thread: int
+    warps_dm: int
+    warps_t: int
+    chans: int
+    stages: int
+    stage_floats: int
+    shared_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps_dm * self.warps_t
+
+    @property
+    def group(self) -> int:
+        return self.warps_dm * self.dms_per_thread
+
+    @property
+    def sub_t(self) -> int:
+        return 32 * self.samples_per_thread * self.warps_t
+
+
+def _largest_divisor(n: int, cap: int) -> int:
+    return max(d for d in range(1, min(n, cap) + 1) if n % d == 0)
+
+
+def plan(block_dm: int, block_t: int, nchan: int = HUB_NCHAN,
+         ndm: int = HUB_NDM) -> Plan | None:
+    """The launch plan of one tiling, or None where the kernel cannot run
+    it. The rule:
+
+    G is the largest of ``DMS_PER_THREAD`` dividing block_dm; ``warps_dm``
+    the largest divisor of block_dm / G up to ``MAX_WARPS_DM``. T is 4
+    where block_t is a multiple of 128, else 2; ``warps_t`` the most warps
+    (at most ``MAX_THREADS`` a block and ``MAX_SUB_T`` samples a sub-tile)
+    whose sub-tiles pad block_t by at most 1/16, so no thread idles but in
+    a tile's last sub-tile. ``chans`` = clamp(``STAGE_SAMPLES_A_THREAD`` ×
+    threads // sub_t, 2, ``MAX_CHANS``): each thread stages about four
+    16-byte pieces a stage, so a wide block on a small grid gets deep
+    stages and a one-warp block on a large grid small ones, which leave
+    room for more blocks an SM (the rule follows a timing of 2 to 16
+    channels a stage at hub tilings on the H100). None when the shared
+    memory passes ``MAX_SMEM_BYTES`` (about 6,000 channels at a group of
+    8 dms, 1,200 at 32) or the dm tiles pass ``MAX_GRID_Y``."""
+    if block_dm < 1 or block_t < 1 or -(-ndm // block_dm) > MAX_GRID_Y:
+        return None
+    g = next(g for g in DMS_PER_THREAD if block_dm % g == 0)
+    warps_dm = _largest_divisor(block_dm // g, MAX_WARPS_DM)
+    t = SAMPLES_PER_THREAD[0] if block_t % 128 == 0 else SAMPLES_PER_THREAD[1]
+    units = -(-block_t // (32 * t))
+    cap = min(MAX_THREADS // 32 // warps_dm, MAX_SUB_T // (32 * t))
+    warps_t = max(w for w in range(1, cap + 1)
+                  if 16 * (-(-units // w) * w - units) <= units)
+    sub_t = 32 * t * warps_t
+    threads = 32 * warps_dm * warps_t
+    chans = max(2, min(MAX_CHANS, STAGE_SAMPLES_A_THREAD * threads // sub_t))
+    group = warps_dm * g
+    stage_floats = chans * (sub_t + 4) + (MAX_DELAY if group > 1 else 0)
+    shared = 4 * (STAGES * stage_floats + nchan * (group + 1) + 4)
+    if shared > MAX_SMEM_BYTES:
+        return None
+    return Plan(g, t, warps_dm, warps_t, chans, STAGES, stage_floats, shared)
+
+
 def fits(config: Mapping, problem: Mapping | None = None) -> bool:
     """Whether csrc/dedispersion.cu can run this tiling for ``problem``
-    (default: the hub size): the double-buffered channel segment and one
-    dm group's delays of every channel within one block's shared memory,
-    and at most ``MAX_GRID_Y`` dm tiles. Any block_dm × block_t tile runs:
-    the block walks it in sub-tiles."""
+    (default: the hub size): its ``plan`` is not None."""
     p = {"nchan": HUB_NCHAN, "ndm": HUB_NDM, **(problem or {})}
-    smem = (2 * SEG + p["nchan"] * GROUP_DM) * 4
-    return (config["block_dm"] >= 1 and config["block_t"] >= 1
-            and smem <= MAX_SMEM_BYTES
-            and -(-p["ndm"] // config["block_dm"]) <= MAX_GRID_Y)
+    return plan(config["block_dm"], config["block_t"], p["nchan"],
+                p["ndm"]) is not None
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda.library("dedispersion")
     if lib.repro_dedisperse.argtypes is None:
-        limits = [ctypes.c_int() for _ in range(4)]
+        limits = [ctypes.c_int() for _ in range(5)]
         lib.repro_dedisperse_limits.argtypes = \
-            [ctypes.POINTER(ctypes.c_int)] * 4
+            [ctypes.POINTER(ctypes.c_int)] * 5
         lib.repro_dedisperse_limits.restype = None
         lib.repro_dedisperse_limits(*map(ctypes.byref, limits))
         got = tuple(v.value for v in limits)
-        want = (MAX_DELAY, GROUP_DM, SEG, MAX_SMEM_BYTES)
+        want = (MAX_DELAY, STAGES, MAX_THREADS, MAX_CHANS, MAX_SMEM_BYTES)
         if got != want:
             raise RuntimeError(f"csrc/dedispersion.cu limits {got} disagree "
                                f"with the wrapper's {want}")
         lib.repro_dedisperse.restype = ctypes.c_int
         lib.repro_dedisperse.argtypes = ([ctypes.c_void_p] * 3
-                                         + [ctypes.c_int] * 5
+                                         + [ctypes.c_int] * 12
                                          + [ctypes.c_void_p])
     return lib
 
@@ -124,7 +217,7 @@ def dedisperse(x: torch.Tensor, delays: torch.Tensor, *, block_dm: int = 32,
     MAX_DELAY halo) with the int32 (nchan, ndm) delay table: output (ndm,
     ntime − MAX_DELAY). The CUDA kernel for tensors on the card,
     ``dedisperse_plain`` for tensors on the CPU. Raises ``ConfigRejected``
-    for a tiling ``fits`` refuses, on either device."""
+    for a tiling ``plan`` refuses, on either device."""
     global launches
     if x.dim() != 2 or delays.dim() != 2 or x.shape[0] != delays.shape[0]:
         raise ValueError(f"dedisperse takes x (nchan, ntime) and delays "
@@ -139,11 +232,11 @@ def dedisperse(x: torch.Tensor, delays: torch.Tensor, *, block_dm: int = 32,
     if x.dtype != torch.float32 or delays.dtype != torch.int32:
         raise ValueError(f"dedisperse takes float32 samples and int32 "
                          f"delays, got {x.dtype} and {delays.dtype}")
-    conf = {"block_dm": block_dm, "block_t": block_t}
-    if not fits(conf, {"nchan": nchan, "ndm": ndm}):
-        raise ConfigRejected(f"tiling {conf} does not fit "
-                             f"csrc/dedispersion.cu at {nchan} channels, "
-                             f"{ndm} dms")
+    pl = plan(block_dm, block_t, nchan, ndm)
+    if pl is None:
+        raise ConfigRejected(f"tiling (block_dm {block_dm}, block_t "
+                             f"{block_t}) does not fit csrc/dedispersion.cu "
+                             f"at {nchan} channels, {ndm} dms")
     if x.device != delays.device:
         raise ValueError("dedisperse operands lie on different devices")
     if x.device.type == "cpu":
@@ -156,9 +249,11 @@ def dedisperse(x: torch.Tensor, delays: torch.Tensor, *, block_dm: int = 32,
     lib = _lib()
     out = torch.empty((ndm, ntime - MAX_DELAY), dtype=torch.float32,
                       device=x.device)
-    rc = lib.repro_dedisperse(x.data_ptr(), delays.data_ptr(),
-                              out.data_ptr(), nchan, ntime, ndm, block_dm,
-                              block_t, cuda.stream_handle(x.device))
+    rc = lib.repro_dedisperse(
+        x.data_ptr(), delays.data_ptr(), out.data_ptr(), nchan, ntime, ndm,
+        block_dm, block_t, pl.dms_per_thread, pl.samples_per_thread,
+        pl.warps_dm, pl.warps_t, pl.chans, pl.stage_floats, pl.shared_bytes,
+        cuda.stream_handle(x.device))
     cuda.check_launch(lib, rc, "dedisperse")
     launches += 1
     return out

@@ -8,9 +8,11 @@ marked ``cuda`` and skip with a reason without one. The file imports only
 
 Tolerances: the GEMM ``RTOL[dtype]·√k`` of tests/test_kernels.py (the
 kernel sums over K in another order than the plain float32 matmul); the
-convolution 1e-3 and hotspot and dedispersion 1e-4, tests/test_kernels.py's
-(their kernels keep the plain versions' order of operations without FMA
-contraction, and chip_smoke.py reports their max |err|); flash attention
+convolution 1e-3 and hotspot 1e-4, tests/test_kernels.py's (their kernels
+keep the plain versions' order of operations without FMA contraction, and
+chip_smoke.py reports their max |err|); dedispersion none — bit-identical
+(``torch.equal``: channel-order ``__fadd_rn``, as the plain version adds);
+flash attention
 ``RTOL[dtype]`` and the SSD scan 3e-3, tests/test_kernels.py's (online
 softmax and chunked sums reorder the adds); the budget scan and the replay
 engine none — bit-identical.
@@ -189,6 +191,15 @@ def test_hotspot_kernel_matches_plain(card, h, w, sh, bw, tb):
 @pytest.mark.parametrize("nchan,nt,ndm,bdm,bt", [
     (32, 768, 24, 8, 256), (32, 768, 24, 4, 192), (32, 768, 24, 16, 128),
     (48, 1000, 40, 12, 384),          # non-dividing dm and time tiles
+    # every (G, T) class of the plan: G 1, 2, 4, 8 at T 4 and at T 2
+    (32, 768, 24, 1, 128), (32, 768, 24, 2, 128), (32, 768, 24, 4, 128),
+    (32, 768, 24, 8, 128), (32, 768, 24, 1, 192), (32, 768, 24, 2, 192),
+    (32, 768, 24, 8, 192),
+    (256, 2048, 64, 1, 128),          # the hub's channels, smallest tile
+    (256, 8000, 256, 128, 3968),      # ... largest tile: 4 dm groups
+    (37, 768, 24, 8, 256),            # channels not a multiple of a stage's
+    (32, 1001, 24, 8, 256),           # ntime % 4 != 0: 4-byte copies
+    (32, 700, 24, 32, 512),           # the last stages read past the signal
 ])
 def test_dedisp_kernel_matches_plain(card, nchan, nt, ndm, bdm, bt):
     rng = np.random.default_rng(5)
@@ -199,8 +210,50 @@ def test_dedisp_kernel_matches_plain(card, nchan, nt, ndm, bdm, bt):
     torch.cuda.synchronize()
     assert dd.launches == before + 1
     assert out.shape == (ndm, nt)
-    torch.testing.assert_close(out, dd.dedisperse_plain(x, delays),
-                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, dd.dedisperse_plain(x, delays))
+
+
+@pytest.mark.parametrize("nchan,nt,ndm,bdm,bt", [
+    (32, 768, 24, 8, 256), (40, 1001, 33, 12, 384), (256, 2048, 64, 1, 128),
+    (64, 4000, 130, 128, 3968), (256, 1024, 64, 32, 512),
+    (32, 768, 24, 2, 192),
+])
+def test_dedisp_kernel_adversarial_delays(card, nchan, nt, ndm, bdm, bt):
+    """A delay table that is not monotonic in dm, with values below 0 and
+    above MAX_DELAY (clamped): channel spans reach MAX_DELAY, so a stage
+    holds fewer channels than the plan's ``chans``."""
+    rng = np.random.default_rng(7)
+    x = _randn(rng, (nchan, nt + dd.MAX_DELAY), card)
+    delays = torch.from_numpy(rng.integers(-100, 700, (nchan, ndm))
+                              .astype(np.int32)).to(card)
+    out = dd.dedisperse(x, delays, block_dm=bdm, block_t=bt)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dd.dedisperse_plain(x, delays))
+
+
+def test_dedisp_launch_refuses_a_plan_outside_its_limits(card):
+    """The C side checks the plan against its own limits and launches
+    nothing for one it cannot run (cudaErrorInvalidValue)."""
+    x = torch.zeros(8, 1024, device=card)
+    delays = torch.zeros(8, 4, dtype=torch.int32, device=card)
+    out = torch.empty(4, 512, device=card)
+    pl = dd.plan(4, 128, 8, 4)
+    args = [pl.dms_per_thread, pl.samples_per_thread, pl.warps_dm,
+            pl.warps_t, pl.chans, pl.stage_floats, pl.shared_bytes]
+    lib = dd._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, bad in ((4, dd.MAX_CHANS + 1), (6, pl.shared_bytes + 4),
+                   (0, 3)):
+        wrong = list(args)
+        wrong[i] = bad
+        assert lib.repro_dedisperse(x.data_ptr(), delays.data_ptr(),
+                                    out.data_ptr(), 8, 1024, 4, 4, 128,
+                                    *wrong, stream) == 1
+    assert lib.repro_dedisperse(x.data_ptr(), delays.data_ptr(),
+                                out.data_ptr(), 8, 1024, 4, 4, 128, *args,
+                                stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, dd.dedisperse_plain(x, delays))
 
 
 def test_hub_kernels_reject_before_launch_on_card(card):

@@ -180,8 +180,51 @@ def test_fits_rejects_what_the_kernels_cannot_run():
     assert not hs.fits({"strip_h": 48, "block_w": 128, "t_block": 1})
     assert not hs.fits({"strip_h": 64, "block_w": 128, "t_block": 64},
                        {"h": 64, "w": 128})
-    assert not dd.fits({"block_dm": 8, "block_t": 128}, {"nchan": 4096})
-    assert dd.fits({"block_dm": 8, "block_t": 128}, {"nchan": 3000})
+    assert not dd.fits({"block_dm": 8, "block_t": 128}, {"nchan": 5995})
+    assert dd.fits({"block_dm": 8, "block_t": 128}, {"nchan": 5994})
+
+
+# (block_dm, block_t) -> (G, T, warps_dm, warps_t, chans, stage floats,
+# shared bytes) at the hub size
+DEDISP_PLANS = {
+    (1, 128): (1, 4, 1, 1, 4, 528, 10512),        # one warp, no halo
+    (4, 192): (4, 2, 1, 3, 8, 2080, 38416),       # T 2: 192 = 3 x 64
+    (12, 384): (4, 4, 3, 1, 12, 2096, 46864),     # three warps along dm
+    (32, 512): (8, 4, 4, 2, 16, 4672, 108560),    # the hub tiling
+    (128, 3968): (8, 4, 4, 2, 16, 4672, 108560),  # 4 dm groups, 16 sub-tiles
+}
+
+
+@pytest.mark.parametrize("tiling", sorted(DEDISP_PLANS))
+def test_dedisp_plan_classes_are_pinned(tiling):
+    pl = dd.plan(*tiling)
+    assert (pl.dms_per_thread, pl.samples_per_thread, pl.warps_dm,
+            pl.warps_t, pl.chans, pl.stage_floats, pl.shared_bytes) == \
+        DEDISP_PLANS[tiling]
+    assert pl.stages == dd.STAGES
+
+
+def test_dedisp_plan_runs_every_hub_tiling_with_its_threads_busy():
+    """``plan`` refuses 0 of the 4,320 hub tilings, stays within a block's
+    shared memory and threads, and uses its threads: a dm group divides
+    block_dm, sub-tiles pad block_t by at most 1/16, and every (G, T)
+    instantiation of the kernel is reached."""
+    space = dd.space()
+    tilings = [(c["block_dm"], c["block_t"])
+               for c in map(space.as_dict, space.valid_configs)]
+    plans = {t: dd.plan(*t) for t in tilings}
+    assert len(tilings) == 4320
+    assert sum(p is None for p in plans.values()) == 0
+    for (bdm, bt), pl in plans.items():
+        assert pl.shared_bytes <= dd.MAX_SMEM_BYTES == 232448
+        assert pl.threads <= dd.MAX_THREADS and pl.chans <= dd.MAX_CHANS
+        assert bdm % pl.group == 0
+        assert 16 * (-(-bt // pl.sub_t) * pl.sub_t - bt) <= bt
+        assert pl.stage_floats >= pl.sub_t + 4 + (
+            dd.MAX_DELAY if pl.group > 1 else 0)
+    assert {(p.dms_per_thread, p.samples_per_thread)
+            for p in plans.values()} == {
+        (g, t) for g in dd.DMS_PER_THREAD for t in dd.SAMPLES_PER_THREAD}
 
 
 def test_rejections_raise_before_launch_on_the_cpu():
@@ -193,8 +236,8 @@ def test_rejections_raise_before_launch_on_the_cpu():
     with pytest.raises(hs.ConfigRejected):
         hs.hotspot(x, x, strip_h=48, block_w=64, t_block=1)
     with pytest.raises(dd.ConfigRejected):
-        dd.dedisperse(torch.zeros(4096, 600), torch.zeros(4096, 2,
-                                                          dtype=torch.int32),
+        dd.dedisperse(torch.zeros(1, 600).expand(27999, -1),
+                      torch.zeros(27999, 2, dtype=torch.int32),
                       block_dm=1, block_t=128)
     assert issubclass(cv.ConfigRejected, ValueError)
     space = cv.space()
