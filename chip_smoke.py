@@ -13,7 +13,8 @@ Phases (any failure ends the script with a non-zero exit):
   2. the build of every kernel from the ``.cu`` sources, in parallel, a
      check that the GEMM library's SASS holds wgmma (``HGMMA``) and TMA
      (``UTMALDG``) instructions, and ptxas' registers and spills of each
-     (G, T) instantiation of the dedispersion kernel (a spill fails);
+     (G, T) instantiation of the dedispersion kernel and each (filter
+     width, R) instantiation of the convolution kernel (a spill fails);
   3. each kernel against its plain PyTorch version on the card: the GEMM at
      tests/test_kernels.py's shapes in float32 and bf16 and at the hub size
      4096^3 bf16 at six tilings (the hub's, an irregular one, and four
@@ -21,9 +22,12 @@ Phases (any failure ends the script with a non-zero exit):
      timed) and at the unaligned 4095x4093x4090 that the wrapper pads
      (``gemm_agrees``, element by element: float32 within
      RTOL·(|ref| + sqrt(k)), bf16 within one bf16 ulp of |ref| plus the
-     float32 term); the convolution and hotspot (t_block 1, 4, 16)
-     kernels at tests/test_kernels.py's shapes and at the hub size, within
-     its tolerances (1e-3, 1e-4); dedispersion bit-identical at its test
+     float32 term); the convolution bit-identical at tests/test_kernels.py's
+     shapes (one 130 wide), with a filter width read at run time, and at
+     the hub size at five tilings, each with its launch plan printed and
+     timed, beside the no-contraction floor; hotspot (t_block 1, 4, 16) at
+     its test shape and the hub size, within 1e-4; dedispersion
+     bit-identical at its test
      shape (also with an adversarial delay table and with ntime not a
      multiple of 4) and at the hub size at five tilings, each with its
      launch plan printed and timed, and with the adversarial table at two
@@ -95,9 +99,13 @@ SMEM_WORDS = 132 * 32 * 1.98e9  # shared memory: 32 words a clock an SM
 RTOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}  # tests/test_kernels.py
 HUB = 4096
 # tests/test_kernels.py's shapes and tolerances of the other hub kernels
+# (h, w, fh, fw, strip_h, block_w): tests/test_kernels.py's shapes (one
+# 130 wide: 4-byte copies), then a filter width the kernel reads at run time
 CONV_SHAPES = [(64, 128, 5, 5, 32, 128), (96, 130, 3, 7, 48, 96),
-               (128, 256, 17, 17, 16, 128)]   # (h, w, fh, fw, strip_h, bw)
-CONV_HUB_TILINGS = [(64, 256), (48, 320)]     # dividing, non-dividing
+               (128, 256, 17, 17, 16, 128), (128, 256, 33, 33, 16, 128)]
+# the hub tiling (timed in the JSON row), a non-dividing one, one sub-tile
+# a tile, the smallest tile and the largest (8 blocks)
+CONV_HUB_TILINGS = [(64, 256), (48, 320), (24, 256), (8, 96), (512, 4096)]
 HOT_TOL, CONV_TOL, DEDISP_TOL = 1e-4, 1e-3, 1e-4
 HOT_HUB_TILING = (64, 512)                    # (strip_h, block_w)
 HOT_T_BLOCKS = (1, 4, 16)
@@ -202,37 +210,55 @@ def nbytes(*tensors) -> int:
 
 
 # ----------------------------------------------------------------- phase 2
-def check_dedisp_build(log: str) -> None:
-    """Print the registers and spills of each (G, T) instantiation of the
-    dedispersion kernel from ptxas' ``-v`` report in ``log``; fail on a
-    spill or a missing instantiation."""
-    from repro_torch.kernels import dedispersion as dd
+def check_instantiations(what: str, log: str, pattern: str, want: set,
+                         label: str) -> None:
+    """Print the registers and spills of each instantiation of a templated
+    kernel from ptxas' ``-v`` report in ``log`` (``pattern`` matches its
+    mangled name and captures the template arguments); fail on a spill or
+    on instantiations other than ``want``."""
     rows, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            kern = re.search(r"dedisp_kernelILi(\d+)ELi(\d+)E",
-                             entry.group(1))
+            kern = re.search(pattern, entry.group(1))
             current = tuple(map(int, kern.groups())) if kern else None
         elif current is not None:
-            for key, pattern in (("stores", r"(\d+) bytes spill stores"),
-                                 ("loads", r"(\d+) bytes spill loads"),
-                                 ("registers", r"Used (\d+) registers")):
-                found = re.search(pattern, line)
+            for key, pat in (("stores", r"(\d+) bytes spill stores"),
+                             ("loads", r"(\d+) bytes spill loads"),
+                             ("registers", r"Used (\d+) registers")):
+                found = re.search(pat, line)
                 if found:
                     rows.setdefault(current, {})[key] = int(found.group(1))
-    for (g, t), row in sorted(rows.items()):
-        print(f"  dedispersion G {g} T {t}: {row.get('registers')} "
+    for args, row in sorted(rows.items()):
+        print(f"  {what} {label.format(*args)}: {row.get('registers')} "
               f"registers, spill stores {row.get('stores')} B, loads "
               f"{row.get('loads')} B")
-    want = {(g, t) for g in dd.DMS_PER_THREAD for t in dd.SAMPLES_PER_THREAD}
     if set(rows) != want:
-        fail(f"ptxas reported dedispersion instantiations {sorted(rows)}, "
-             f"not {sorted(want)}")
+        fail(f"ptxas reported {what} instantiations {sorted(rows)}, not "
+             f"{sorted(want)}")
     spilled = [k for k, row in rows.items()
                if row.get("stores", 1) or row.get("loads", 1)]
     if spilled:
-        fail(f"dedispersion instantiations {spilled} spill registers")
+        fail(f"{what} instantiations {spilled} spill registers")
+
+
+def check_dedisp_build(log: str) -> None:
+    """Registers and spills of each (G, T) instantiation of the
+    dedispersion kernel; a spill fails."""
+    from repro_torch.kernels import dedispersion as dd
+    check_instantiations(
+        "dedispersion", log, r"dedisp_kernelILi(\d+)ELi(\d+)E",
+        {(g, t) for g in dd.DMS_PER_THREAD for t in dd.SAMPLES_PER_THREAD},
+        "G {} T {}")
+
+
+def check_conv_build(log: str) -> None:
+    """Registers and spills of each (filter width, R) instantiation of the
+    convolution kernel (width 0: read at run time); a spill fails."""
+    from repro_torch.kernels import convolution as cv
+    check_instantiations(
+        "convolution", log, r"conv2d_kernelILi(\d+)ELi(\d+)E",
+        set(cv.INSTANTIATIONS.items()), "fw {} R {}")
 
 
 def check_sass(lib: pathlib.Path) -> None:
@@ -370,34 +396,64 @@ def randn(rng, shape, device, scale: float = 1.0) -> torch.Tensor:
     return torch.from_numpy(x).to(device)
 
 
+def exact(what: str, out: torch.Tensor, ref: torch.Tensor, tol: float,
+          plain: str) -> float:
+    """``agree`` within ``tol``, and fail unless bit-identical: the kernel
+    computes in the plain version's order, without contraction."""
+    err = agree(what, out, ref, tol)
+    if not torch.equal(out, ref):
+        fail(f"{what} is not bit-identical to {plain}")
+    return err
+
+
 def check_conv(device: str) -> dict:
-    """Convolution kernel vs ``conv2d_plain``; times at the hub size."""
+    """Convolution kernel vs ``conv2d_plain``, bit for bit, at the test
+    shapes (one of them 130 wide, one a run-time filter width) and at the
+    hub size at every tiling of CONV_HUB_TILINGS, each with its launch plan
+    printed and timed; the JSON row at the first."""
     from repro_torch.kernels import convolution as cv
     rng = np.random.default_rng(1)
-    cases = CONV_SHAPES + [(HUB, HUB, 17, 17, sh, bw)
-                           for sh, bw in CONV_HUB_TILINGS]
-    hub_err = 0.0
-    for h, w, fh, fw, sh, bw in cases:
+    for h, w, fh, fw, sh, bw in CONV_SHAPES:
         x, f = randn(rng, (h, w), device), randn(rng, (fh, fw), device)
-        out = cv.conv2d(x, f, strip_h=sh, block_w=bw)
-        err = agree(f"convolution {h}x{w} filter {fh}x{fw} tiles ({sh},{bw})",
-                    out, cv.conv2d_plain(x, f), CONV_TOL)
-        if h == HUB:
-            hub_err = max(hub_err, err)
+        exact(f"convolution {h}x{w} filter {fh}x{fw} tiles ({sh},{bw})",
+              cv.conv2d(x, f, strip_h=sh, block_w=bw), cv.conv2d_plain(x, f),
+              CONV_TOL, "conv2d_plain")
+    x, f = randn(rng, (HUB, HUB), device), randn(rng, (17, 17), device)
+    ref = cv.conv2d_plain(x, f)
+    flops = 2.0 * HUB * HUB * 17 * 17
+    hub_err, times = 0.0, {}
+    for sh, bw in CONV_HUB_TILINGS:
+        pl = cv.plan(sh, bw, 17, 17)
+        print(f"  plan ({sh},{bw}): {pl.instantiation}, C {pl.cols}, "
+              f"threads {pl.threads_x} x {pl.threads_y} ({pl.threads}), "
+              f"sub-tile {pl.sub_h} x {pl.sub_w} "
+              f"({pl.sub_tiles(sh, bw)} a tile), {pl.stages} stages, pitch "
+              f"{pl.pitch}, {pl.shared_bytes} B shared")
+        hub_err = max(hub_err, exact(
+            f"convolution {HUB}x{HUB} filter 17x17 tiles ({sh},{bw})",
+            cv.conv2d(x, f, strip_h=sh, block_w=bw), ref, CONV_TOL,
+            "conv2d_plain"))
+        times[sh, bw] = time_ms(lambda: cv.conv2d(x, f, strip_h=sh,
+                                                  block_w=bw))
+        print(f"  convolution hub ({sh},{bw}): kernel {times[sh, bw]:.4f} ms "
+              f"({flops / times[sh, bw] / 1e9:.2f} TFLOP/s)")
     sh, bw = CONV_HUB_TILINGS[0]
-    ms = time_ms(lambda: cv.conv2d(x, f, strip_h=sh, block_w=bw))
+    ms = times[sh, bw]
     plain_ms = time_ms(lambda: cv.conv2d_plain(x, f))
     # yardstick only: one PyTorch call computing the same function (cuDNN,
     # TF32 off as main() sets it)
     library_ms = time_ms(lambda: torch.nn.functional.conv2d(
         x[None, None], f[None, None], padding=8))
-    flops = 2.0 * HUB * HUB * 17 * 17
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
     bytes_ms = (nbytes(x, f) + HUB * HUB * 4) / PEAK_BYTES * 1e3
+    # a multiply and an add, each one instruction, at one a lane a clock
+    floor_ms = flops / PEAK_F32_ADDS * 1e3
     print(f"  convolution {HUB}^2 17x17 ({sh},{bw}): kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
           f"F.conv2d {library_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} "
-          f"ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+          f"ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f}), "
+          f"no-contraction floor {floor_ms:.4f} ms (__fmul_rn and __fadd_rn "
+          f"at {PEAK_F32_ADDS / 1e12:.1f} T instructions a second)")
     return kernel_row("convolution", "src/repro_torch/kernels/csrc/"
                       "convolution.cu", "src/repro/kernels/convolution.py:40",
                       hub_err, ms, plain_ms, ops_ms, bytes_ms, library_ms)
@@ -436,15 +492,6 @@ def check_hotspot(device: str) -> dict:
     return row
 
 
-def dedisp_equal(what: str, out: torch.Tensor, ref: torch.Tensor) -> float:
-    """``agree`` within DEDISP_TOL, and fail unless bit-identical: the
-    kernel adds the channels in the plain version's order."""
-    err = agree(what, out, ref, DEDISP_TOL)
-    if not torch.equal(out, ref):
-        fail(f"{what} is not bit-identical to dedisperse_plain")
-    return err
-
-
 def adversarial_delays(rng, nchan: int, ndm: int, device: str):
     """A delay table not monotonic in dm, with values below 0 and above
     MAX_DELAY that the kernel clamps."""
@@ -467,10 +514,11 @@ def check_dedisp(device: str) -> dict:
         for what, xs, ds in (("", x, delays),
                              (" adversarial delays", x, adversarial),
                              (" ntime+1", x_odd, delays)):
-            dedisp_equal(f"dedispersion {nchan}x{xs.shape[1]} {ndm} dms "
-                         f"tiles ({bdm},{bt}){what}",
-                         dd.dedisperse(xs, ds, block_dm=bdm, block_t=bt),
-                         dd.dedisperse_plain(xs, ds))
+            exact(f"dedispersion {nchan}x{xs.shape[1]} {ndm} dms "
+                  f"tiles ({bdm},{bt}){what}",
+                  dd.dedisperse(xs, ds, block_dm=bdm, block_t=bt),
+                  dd.dedisperse_plain(xs, ds), DEDISP_TOL,
+                  "dedisperse_plain")
     hub = HUB_PROBLEMS["dedispersion"]
     nchan, ntime, ndm = hub["nchan"], hub["ntime"], hub["ndm"]
     x = randn(rng, (nchan, ntime), device)
@@ -486,9 +534,10 @@ def check_dedisp(device: str) -> dict:
               f"{pl.sub_t} samples, {pl.stages} stages of up to {pl.chans} "
               f"channels ({pl.stage_floats} floats), {pl.shared_bytes} B "
               f"shared")
-        hub_err = max(hub_err, dedisp_equal(
+        hub_err = max(hub_err, exact(
             f"dedispersion {nchan}x{ntime} {ndm} dms tiles ({bdm},{bt})",
-            dd.dedisperse(x, delays, block_dm=bdm, block_t=bt), ref))
+            dd.dedisperse(x, delays, block_dm=bdm, block_t=bt), ref,
+            DEDISP_TOL, "dedisperse_plain"))
         times[bdm, bt] = time_ms(lambda: dd.dedisperse(
             x, delays, block_dm=bdm, block_t=bt))
         print(f"  dedispersion hub ({bdm},{bt}): kernel "
@@ -497,10 +546,10 @@ def check_dedisp(device: str) -> dict:
     adversarial = adversarial_delays(rng, nchan, ndm, device)
     ref_adv = dd.dedisperse_plain(x, adversarial)
     for bdm, bt in DEDISP_ADVERSARIAL:
-        dedisp_equal(f"dedispersion {nchan}x{ntime} {ndm} dms tiles "
-                     f"({bdm},{bt}) adversarial delays",
-                     dd.dedisperse(x, adversarial, block_dm=bdm, block_t=bt),
-                     ref_adv)
+        exact(f"dedispersion {nchan}x{ntime} {ndm} dms tiles "
+              f"({bdm},{bt}) adversarial delays",
+              dd.dedisperse(x, adversarial, block_dm=bdm, block_t=bt),
+              ref_adv, DEDISP_TOL, "dedisperse_plain")
     bdm, bt = DEDISP_HUB_TILINGS[0]
     ms = times[bdm, bt]
     plain_ms = time_ms(lambda: dd.dedisperse_plain(x, delays))
@@ -903,6 +952,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     check_sass(cuda.library_path("gemm"))
     check_dedisp_build(cuda.build_log("dedispersion"))
+    check_conv_build(cuda.build_log("convolution"))
 
     print("[3] kernels against their plain versions")
     kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),

@@ -10,17 +10,29 @@ space, the problem sizes and the cost-model ``workload()`` are the
 reference's, unchanged: the same tunables in the same order, so config ids
 agree across the two packages.
 
-``strip_h`` and ``block_w`` are runtime arguments of one compiled kernel.
-Tiles the image does not divide are handled by bounds checks, with the
-same result as the reference's zero padding. ``unroll_fh``, ``acc_dtype``
-and ``vector_w`` stay cost-model-only, as in the reference's
-``make_live``. A problem the kernel cannot run (``fits`` is false: a
-filter wider than 33 taps, or more row tiles than one launch takes)
-raises ``ConfigRejected`` before any launch, on the CPU as on the card.
+The kernel (its header has the detail): a block owns one strip_h ×
+block_w output tile and walks it in sub-tiles. Each thread holds R rows ×
+C adjacent columns of outputs in registers; per filter row it holds that
+row of the filter in registers and reads each of its R input rows once,
+as float4s, so the float32 pipe and not shared memory sets its pace. The
+sub-tiles' halo'd input streams into a ring of shared-memory stages
+filled by ``cp.async``, zeros outside the image included.
+
+``plan`` turns a tiling and filter into that launch (instantiation, R,
+C, threads, stages, shared memory) on the CPU as on the card; ``fits``
+is "``plan`` is not None and the row tiles fit one launch" and rejects no
+tiling of the hub space. ``strip_h`` and ``block_w`` keep the reference's
+meaning. Tiles the image does not divide are handled by bounds checks,
+with the same result as the reference's zero padding. ``unroll_fh``,
+``acc_dtype`` and ``vector_w`` stay cost-model-only, as in the
+reference's ``make_live``. A problem the kernel cannot run (a filter
+wider than 33 taps, or more row tiles than one launch takes) raises
+``ConfigRejected`` before any launch, on the CPU as on the card.
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Mapping
 
 import numpy as np
@@ -44,38 +56,138 @@ BYTES = 4  # fp32 image
 SMOKE_PROBLEM = {"h": 128, "w": 256, "fh": 7, "fw": 7}
 
 # limits of csrc/convolution.cu (checked against the library when it loads)
-MAX_FILTER = 33            # filter taps a side the shared-memory halo holds
+MAX_FILTER = 33            # filter taps a side
+MAX_THREADS = 512          # threads a block
+MAX_STAGES = 3             # stages of the cp.async ring
+MAX_SMEM_BYTES = 232448    # dynamic shared memory one block may use
+COLS_PER_THREAD = 4        # adjacent output columns a thread holds (C)
 MAX_GRID_Y = 65535         # row tiles per launch
+# the kernel's instantiations: filter width (0: any width up to MAX_FILTER,
+# read at run time) -> output rows a thread holds (R)
+INSTANTIATIONS = {3: 8, 5: 8, 7: 8, 17: 8, 0: 4}
+# how ``plan`` shapes a block
+MAX_THREADS_X = 128        # threads side by side along a row
+BIG_TILE = 65536           # outputs from which a block takes MAX_THREADS
+SMALL_THREADS = 256        # threads a block below BIG_TILE
 
 # kernel launches by ``conv2d`` (plain-version calls on the CPU do not count)
 launches = 0
 
 
 # ----------------------------------------------------------------- kernel
+@dataclass(frozen=True)
+class Plan:
+    """How csrc/convolution.cu runs one tiling.
+
+    ``filter_width`` names the instantiation: a width the kernel unrolls,
+    or 0 for the one that reads the width at run time. A thread holds
+    ``rows`` (R) x ``cols`` (C) outputs; ``threads_x`` x ``threads_y``
+    threads make a block, which walks its strip_h x block_w tile in
+    sub-tiles of ``sub_h`` x ``sub_w`` outputs. Each sub-tile's halo'd
+    input, ``sub_h + fh - 1`` rows of ``pitch`` floats, streams into one of
+    ``stages`` ring stages; the filter, its rows padded to 4 floats, sits
+    after the ring. ``shared_bytes`` is all of it."""
+    filter_width: int
+    rows: int
+    cols: int
+    threads_x: int
+    threads_y: int
+    stages: int
+    pitch: int
+    shared_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return self.threads_x * self.threads_y
+
+    @property
+    def sub_h(self) -> int:
+        return self.threads_y * self.rows
+
+    @property
+    def sub_w(self) -> int:
+        return self.threads_x * self.cols
+
+    @property
+    def instantiation(self) -> str:
+        fw = self.filter_width or "runtime"
+        return f"conv2d_kernel<fw {fw}, R {self.rows}>"
+
+    def sub_tiles(self, strip_h: int, block_w: int) -> int:
+        """Sub-tiles of one whole strip_h x block_w tile."""
+        return -(-strip_h // self.sub_h) * -(-block_w // self.sub_w)
+
+
+def plan(strip_h: int, block_w: int, fh: int = HUB_FH,
+         fw: int = HUB_FW) -> Plan | None:
+    """The launch plan of one tiling, or None where the kernel cannot run
+    it (a filter side outside 1..``MAX_FILTER``, a tile side below 1). The
+    rule:
+
+    The instantiation is the filter width where the kernel unrolls it
+    (``INSTANTIATIONS``), else the run-time one (0); it fixes R, and C is
+    ``COLS_PER_THREAD``. A block takes ``MAX_THREADS`` threads where its
+    tile holds at least ``BIG_TILE`` outputs (large tiles make small
+    grids), else ``SMALL_THREADS``. Along a row: the fewest passes of at
+    most ``MAX_THREADS_X`` threads that cover block_w / C, each pass's
+    threads rounded up to 8 (so a quarter-warp's float4 reads stay in one
+    row). Down the tile: the fewest passes of the remaining threads that
+    cover strip_h / R, evened out. Three ring stages where the tile has
+    three sub-tiles and they fit, else two; where two do not fit (a tall
+    filter under a wide block), the sub-tile's rows are halved until they
+    do. Every tile and filter within the limits gets a plan."""
+    if not (1 <= fh <= MAX_FILTER and 1 <= fw <= MAX_FILTER
+            and strip_h >= 1 and block_w >= 1):
+        return None
+    inst = fw if fw in INSTANTIATIONS else 0
+    r, c = INSTANTIATIONS[inst], COLS_PER_THREAD
+    cap = MAX_THREADS if strip_h * block_w >= BIG_TILE else SMALL_THREADS
+    units_x, units_y = -(-block_w // c), -(-strip_h // r)
+    passes_x = -(-units_x // MAX_THREADS_X)
+    tx = 8 * -(-units_x // (8 * passes_x))
+    passes_y = -(-units_y // max(1, cap // tx))
+    ty = -(-units_y // passes_y)
+    # a thread's window: C + fw - 1 floats read as whole float4s
+    pitch = c * (tx - 1) + 4 * -(-(c + fw - 1) // 4)
+    filter_floats = fh * 4 * -(-fw // 4)
+
+    def shared(stages: int, ty: int) -> int:
+        return 4 * (stages * (ty * r + fh - 1) * pitch + filter_floats)
+
+    while ty > 1 and shared(2, ty) > MAX_SMEM_BYTES:  # a tall filter
+        ty = -(-ty // 2)
+    n_sub = -(-strip_h // (ty * r)) * -(-block_w // (tx * c))
+    stages = 3 if n_sub >= 3 and shared(3, ty) <= MAX_SMEM_BYTES else 2
+    return Plan(inst, r, c, tx, ty, stages, pitch, shared(stages, ty))
+
+
 def fits(config: Mapping, problem: Mapping | None = None) -> bool:
     """Whether csrc/convolution.cu can run this tiling for ``problem``
-    (default: the hub size): a filter of at most ``MAX_FILTER`` taps a side
-    and at most ``MAX_GRID_Y`` row tiles. Any strip_h × block_w tile runs:
-    the block walks it in sub-tiles that fit its shared memory."""
+    (default: the hub size): ``plan`` is not None and the row tiles are at
+    most ``MAX_GRID_Y``. Any strip_h x block_w tile runs: the block walks
+    it in sub-tiles that fit its shared memory."""
     p = {"h": HUB_H, "fh": HUB_FH, "fw": HUB_FW, **(problem or {})}
-    return (max(p["fh"], p["fw"]) <= MAX_FILTER
-            and -(-p["h"] // config["strip_h"]) <= MAX_GRID_Y)
+    return (plan(config["strip_h"], config["block_w"], p["fh"], p["fw"])
+            is not None and -(-p["h"] // config["strip_h"]) <= MAX_GRID_Y)
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda.library("convolution")
     if lib.repro_conv2d.argtypes is None:
-        limit = ctypes.c_int()
-        lib.repro_conv2d_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        limits = [ctypes.c_int() for _ in range(5)]
+        lib.repro_conv2d_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
         lib.repro_conv2d_limits.restype = None
-        lib.repro_conv2d_limits(ctypes.byref(limit))
-        if limit.value != MAX_FILTER:
-            raise RuntimeError(f"csrc/convolution.cu filter limit "
-                               f"{limit.value} disagrees with the wrapper's "
-                               f"{MAX_FILTER}")
+        lib.repro_conv2d_limits(*map(ctypes.byref, limits))
+        got = tuple(v.value for v in limits)
+        want = (MAX_FILTER, MAX_THREADS, MAX_STAGES, MAX_SMEM_BYTES,
+                COLS_PER_THREAD)
+        if got != want:
+            raise RuntimeError(f"csrc/convolution.cu limits {got} disagree "
+                               f"with the wrapper's {want}")
         lib.repro_conv2d.restype = ctypes.c_int
         lib.repro_conv2d.argtypes = ([ctypes.c_void_p] * 3
-                                     + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                                     + [ctypes.c_int] * 13
+                                     + [ctypes.c_void_p])
     return lib
 
 
@@ -100,8 +212,8 @@ def conv2d(x: torch.Tensor, f: torch.Tensor, *, strip_h: int = 64,
     """'Same'-padded 2-D cross-correlation of the (H, W) image ``x`` with
     the (fh, fw) filter ``f``, float32, with the given tiling: the CUDA
     kernel for tensors on the card, ``conv2d_plain`` for tensors on the CPU.
-    Raises ``ConfigRejected`` for a tiling ``fits`` refuses, on either
-    device."""
+    Raises ``ConfigRejected`` for a tiling ``plan`` or the grid refuses, on
+    either device."""
     global launches
     if x.dim() != 2 or f.dim() != 2 or min(*x.shape, *f.shape) < 1:
         raise ValueError(f"conv2d takes a 2-D image and a 2-D filter, got "
@@ -112,10 +224,11 @@ def conv2d(x: torch.Tensor, f: torch.Tensor, *, strip_h: int = 64,
     if strip_h < 1 or block_w < 1:
         raise ValueError(f"tiles must be positive, got {strip_h}x{block_w}")
     (h, w), (fh, fw) = x.shape, f.shape
-    conf = {"strip_h": strip_h, "block_w": block_w}
-    if not fits(conf, {"h": h, "fh": fh, "fw": fw}):
-        raise ConfigRejected(f"tiling {conf} with a {fh}x{fw} filter does "
-                             f"not fit csrc/convolution.cu at h={h}")
+    pl = plan(strip_h, block_w, fh, fw)
+    if pl is None or -(-h // strip_h) > MAX_GRID_Y:
+        raise ConfigRejected(f"tiling ({strip_h},{block_w}) with a {fh}x{fw} "
+                             f"filter does not fit csrc/convolution.cu at "
+                             f"h={h}")
     if x.device != f.device:
         raise ValueError("conv2d operands lie on different devices")
     if x.device.type == "cpu":
@@ -127,8 +240,9 @@ def conv2d(x: torch.Tensor, f: torch.Tensor, *, strip_h: int = 64,
     lib = _lib()
     out = torch.empty((h, w), dtype=torch.float32, device=x.device)
     rc = lib.repro_conv2d(x.data_ptr(), f.data_ptr(), out.data_ptr(), h, w,
-                          fh, fw, strip_h, block_w,
-                          cuda.stream_handle(x.device))
+                          fh, fw, strip_h, block_w, pl.filter_width, pl.rows,
+                          pl.threads_x, pl.threads_y, pl.stages, pl.pitch,
+                          pl.shared_bytes, cuda.stream_handle(x.device))
     cuda.check_launch(lib, rc, "conv2d")
     launches += 1
     return out

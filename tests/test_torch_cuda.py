@@ -7,11 +7,13 @@ marked ``cuda`` and skip with a reason without one. The file imports only
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 
 Tolerances: the GEMM ``RTOL[dtype]·√k`` of tests/test_kernels.py (the
-kernel sums over K in another order than the plain float32 matmul); the
-convolution 1e-3 and hotspot 1e-4, tests/test_kernels.py's (their kernels
-keep the plain versions' order of operations without FMA contraction, and
-chip_smoke.py reports their max |err|); dedispersion none — bit-identical
-(``torch.equal``: channel-order ``__fadd_rn``, as the plain version adds);
+kernel sums over K in another order than the plain float32 matmul);
+hotspot 1e-4, tests/test_kernels.py's (its kernel keeps the plain
+version's order of operations without FMA contraction, and chip_smoke.py
+reports its max |err|); the convolution and dedispersion none —
+bit-identical (``torch.equal``: the convolution's taps dy outer, dx inner,
+``__fmul_rn`` then ``__fadd_rn``; dedispersion's channel-order
+``__fadd_rn``, as the plain versions compute);
 flash attention
 ``RTOL[dtype]`` and the SSD scan 3e-3, tests/test_kernels.py's (online
 softmax and chunked sums reorder the adds); the budget scan and the replay
@@ -158,9 +160,17 @@ def _randn(rng, shape, card, scale=1.0):
 
 @pytest.mark.parametrize("h,w,fh,fw,sh,bw", [
     (64, 128, 5, 5, 32, 128),
-    (96, 130, 3, 7, 48, 96),          # padded width
+    (96, 130, 3, 7, 48, 96),          # padded width: 4-byte copies
     (128, 256, 17, 17, 16, 128),      # hub filter size
     (200, 300, 17, 17, 48, 320),      # non-dividing in both dims
+    # one case per instantiation class and ring depth of the plan
+    (40, 52, 3, 3, 16, 96),           # fw 3
+    (50, 70, 33, 33, 8, 96),          # fw 33: the run-time width
+    (37, 45, 9, 9, 16, 128),          # the run-time width, 3 stages
+    (200, 300, 17, 17, 96, 256),      # the hub filter, 3 stages
+    (150, 200, 17, 17, 512, 4096),    # 512 threads, tile past the image
+    (33, 259, 7, 7, 8, 96),           # odd width, 8-row tiles
+    (64, 256, 4, 6, 32, 128),         # even filter sides
 ])
 def test_conv_kernel_matches_plain(card, h, w, fh, fw, sh, bw):
     rng = np.random.default_rng(1)
@@ -169,8 +179,46 @@ def test_conv_kernel_matches_plain(card, h, w, fh, fw, sh, bw):
     out = cv.conv2d(x, f, strip_h=sh, block_w=bw)
     torch.cuda.synchronize()
     assert cv.launches == before + 1
-    torch.testing.assert_close(out, cv.conv2d_plain(x, f), rtol=1e-3,
-                               atol=1e-3)
+    assert torch.equal(out, cv.conv2d_plain(x, f))
+
+
+def test_conv_kernel_takes_a_misaligned_image(card):
+    """An image whose storage starts 4 bytes past a 16-byte boundary: every
+    row takes 4-byte copies."""
+    rng = np.random.default_rng(2)
+    h, w = 70, 128
+    x = torch.empty(h * w + 1, device=card)[1:].view(h, w)
+    x.copy_(_randn(rng, (h, w), card))
+    f = _randn(rng, (17, 17), card)
+    out = cv.conv2d(x, f, strip_h=64, block_w=256)
+    torch.cuda.synchronize()
+    assert torch.equal(out, cv.conv2d_plain(x, f))
+
+
+def test_conv_launch_refuses_a_plan_outside_its_limits(card):
+    """The C side checks the plan against its own limits and launches
+    nothing for one it cannot run (cudaErrorInvalidValue)."""
+    x = torch.zeros(64, 128, device=card)
+    f = torch.ones(17, 17, device=card)
+    out = torch.full((64, 128), 7.0, device=card)
+    pl = cv.plan(32, 128, 17, 17)
+    args = [pl.filter_width, pl.rows, pl.threads_x, pl.threads_y, pl.stages,
+            pl.pitch, pl.shared_bytes]
+    lib = cv._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, bad in ((0, 5), (1, 4), (3, 512), (4, 4), (5, pl.pitch + 4),
+                   (6, pl.shared_bytes + 4)):
+        wrong = list(args)
+        wrong[i] = bad
+        assert lib.repro_conv2d(x.data_ptr(), f.data_ptr(), out.data_ptr(),
+                                64, 128, 17, 17, 32, 128, *wrong,
+                                stream) == 1
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert lib.repro_conv2d(x.data_ptr(), f.data_ptr(), out.data_ptr(), 64,
+                            128, 17, 17, 32, 128, *args, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, cv.conv2d_plain(x, f))
 
 
 @pytest.mark.parametrize("h,w,sh,bw,tb", [

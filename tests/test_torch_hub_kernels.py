@@ -9,6 +9,8 @@ cost-model workloads and delay table must equal the reference's exactly.
 The CUDA kernels themselves are compared with the plain versions on the
 card by chip_smoke.py and tests/test_torch_cuda.py.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -225,6 +227,154 @@ def test_dedisp_plan_runs_every_hub_tiling_with_its_threads_busy():
     assert {(p.dms_per_thread, p.samples_per_thread)
             for p in plans.values()} == {
         (g, t) for g in dd.DMS_PER_THREAD for t in dd.SAMPLES_PER_THREAD}
+
+
+# (strip_h, block_w, fh, fw) -> (instantiation, R, C, threads x, threads y,
+# stages, pitch, shared bytes)
+CONV_PLANS = {
+    (64, 256, 17, 17): (17, 8, 4, 64, 4, 2, 272, 105808),   # the hub tiling
+    (48, 320, 17, 17): (17, 8, 4, 80, 3, 2, 336, 108880),   # non-dividing
+    (24, 256, 17, 17): (17, 8, 4, 64, 3, 2, 272, 88400),    # one sub-tile
+    (8, 96, 17, 17): (17, 8, 4, 24, 1, 2, 112, 22864),      # smallest tile
+    (512, 4096, 17, 17): (17, 8, 4, 128, 4, 2, 528, 204112),  # 8 blocks
+    (64, 256, 9, 9): (0, 4, 4, 64, 4, 3, 264, 76464),       # run-time width
+}
+CONV_FILTERS = [(17, 17), (3, 3), (5, 5), (3, 7), (9, 9), (33, 33), (1, 1)]
+# the most a hub tiling's padded sub-tiles leave idle of its lanes: (8,160)
+# runs 40 threads, 2 warps of which 1.25 work
+CONV_IDLE_LANES = 0.375
+
+
+@pytest.mark.parametrize("tiling", sorted(CONV_PLANS))
+def test_conv_plan_classes_are_pinned(tiling):
+    pl = cv.plan(*tiling)
+    assert (pl.filter_width, pl.rows, pl.cols, pl.threads_x, pl.threads_y,
+            pl.stages, pl.pitch, pl.shared_bytes) == CONV_PLANS[tiling]
+    assert pl.rows == cv.INSTANTIATIONS[pl.filter_width]
+
+
+def test_conv_plan_runs_every_hub_tiling_with_its_lanes_busy():
+    """``plan`` refuses 0 of the 3,360 hub tilings, stays within a block's
+    shared memory and threads with a ring of 2 or 3 stages, reaches every
+    instantiation over the filters the repository runs, and pads a hub
+    tile to whole sub-tiles and warps leaving at most
+    ``CONV_IDLE_LANES`` of its lanes idle."""
+    space = cv.space()
+    configs = [space.as_dict(c) for c in space.valid_configs]
+    assert len(configs) == 3360
+    assert sum(cv.plan(c["strip_h"], c["block_w"]) is None
+               for c in configs) == 0
+    tilings = {(c["strip_h"], c["block_w"]) for c in configs}
+    reached, worst = set(), 0.0
+    for (sh, bw), (fh, fw) in itertools.product(sorted(tilings),
+                                                CONV_FILTERS):
+        pl = cv.plan(sh, bw, fh, fw)
+        assert pl.shared_bytes <= cv.MAX_SMEM_BYTES == 232448
+        assert pl.threads <= cv.MAX_THREADS <= 1024
+        assert 2 <= pl.stages <= cv.MAX_STAGES
+        assert pl.pitch % 4 == 0 and pl.pitch >= pl.sub_w + fw - 1
+        reached.add((pl.filter_width, pl.rows))
+        if (fh, fw) == (17, 17):
+            lanes = (pl.sub_tiles(sh, bw) * -(-pl.threads // 32) * 32
+                     * pl.rows * pl.cols)
+            worst = max(worst, 1 - sh * bw / lanes)
+    assert reached == set(cv.INSTANTIATIONS.items())
+    assert worst == CONV_IDLE_LANES
+
+
+def test_conv_fits_accepts_what_it_accepted_before_plan():
+    """``fits`` is true exactly where the kernel it replaced took the
+    problem: both filter sides at most 33 taps and at most 65,535 row
+    tiles."""
+    for fh, fw, h, sh in itertools.product((1, 2, 17, 33, 34), (1, 4, 33, 35),
+                                           (64, 4096, 65535 * 8 + 1),
+                                           (8, 512)):
+        want = max(fh, fw) <= 33 and -(-h // sh) <= 65535
+        assert cv.fits({"strip_h": sh, "block_w": 96},
+                       {"h": h, "fh": fh, "fw": fw}) == want
+
+
+def _conv_mirror(x: np.ndarray, f: np.ndarray, strip_h: int,
+                 block_w: int) -> np.ndarray:
+    """csrc/convolution.cu's index walk in numpy, on float32: per block its
+    sub-tiles in order through the ring (prologue fills, then each step
+    fills ``stages - 1`` ahead into the stage read last, then computes),
+    each staged row as its 16-byte pieces with zeros outside the image and
+    NaN past them, each thread's R x C patch from float4 windows of
+    ``pitch``-wide rows, taps dy outer, dx inner, multiply then add."""
+    h, w = x.shape
+    fh, fw = f.shape
+    pl = cv.plan(strip_h, block_w, fh, fw)
+    r_, c_, txn, tyn = pl.rows, pl.cols, pl.threads_x, pl.threads_y
+    sub_h, sub_w, pitch = pl.sub_h, pl.sub_w, pl.pitch
+    rows_h = sub_h + fh - 1
+    staged = 4 * -(-(sub_w + fw - 1) // 4)
+    nwin = 4 * -(-(c_ + fw - 1) // 4)
+    fs = np.zeros((fh, 4 * -(-fw // 4)), np.float32)
+    fs[:, :fw] = f
+    ph, pw = fh // 2, fw // 2
+    out = np.full((h, w), np.nan, np.float32)
+    ring = np.full((pl.stages, rows_h, pitch), np.nan, np.float32)
+    ty, tx = np.meshgrid(np.arange(tyn), np.arange(txn), indexing="ij")
+    for tr0 in range(0, h, strip_h):
+        for tc0 in range(0, w, block_w):
+            tr1, tc1 = min(tr0 + strip_h, h), min(tc0 + block_w, w)
+            n_sub_x = -(-(tc1 - tc0) // sub_w)
+            n_sub = n_sub_x * -(-(tr1 - tr0) // sub_h)
+
+            def fill(s):
+                sy, sx = divmod(s, n_sub_x)
+                gr = tr0 + sy * sub_h - ph + np.arange(rows_h)[:, None]
+                gc = tc0 + sx * sub_w - pw + np.arange(staged)[None, :]
+                inside = (gr >= 0) & (gr < h) & (gc >= 0) & (gc < w)
+                stage = ring[s % pl.stages]
+                stage[:] = np.nan
+                stage[:, :staged] = np.where(
+                    inside, x[np.clip(gr, 0, h - 1), np.clip(gc, 0, w - 1)],
+                    np.float32(0))
+
+            for s in range(pl.stages - 1):
+                if s < n_sub:
+                    fill(s)
+            for s in range(n_sub):
+                if s + pl.stages - 1 < n_sub:
+                    fill(s + pl.stages - 1)
+                sy, sx = divmod(s, n_sub_x)
+                stage = ring[s % pl.stages]
+                acc = np.zeros((tyn, txn, r_, c_), np.float32)
+                for dy in range(fh):
+                    for i in range(r_):
+                        win = stage[(ty * r_ + i + dy)[..., None],
+                                    (tx * c_)[..., None] + np.arange(nwin)]
+                        for dx in range(fw):
+                            acc[:, :, i] = (acc[:, :, i]
+                                            + win[:, :, dx:dx + c_]
+                                            * fs[dy, dx])
+                r0 = tr0 + sy * sub_h + ty * r_
+                c0 = tc0 + sx * sub_w + tx * c_
+                for i, c in itertools.product(range(r_), range(c_)):
+                    row, col = r0 + i, c0 + c
+                    keep = (row < tr1) & (col < tc1)
+                    out[row[keep], col[keep]] = acc[:, :, i, c][keep]
+    return out
+
+
+@pytest.mark.parametrize("h,w,fh,fw,sh,bw", [
+    (96, 130, 3, 7, 48, 96),          # the 130-wide test image
+    (40, 52, 3, 3, 16, 96),           # fw 3
+    (70, 90, 17, 17, 24, 96),         # the hub filter, ragged tiles
+    (50, 70, 33, 33, 8, 96),          # fw 33: the run-time width
+    (37, 45, 9, 9, 16, 128),          # the run-time width, 3-stage ring
+    (20, 30, 5, 5, 512, 4096),        # a tile larger than the image
+    (150, 200, 17, 17, 512, 4096),    # ... with several sub-tiles
+    (33, 259, 7, 7, 8, 96),           # odd width, many 8-row tiles
+])
+def test_conv_mirror_of_the_kernel_walk_equals_plain(h, w, fh, fw, sh, bw):
+    x, f = _randn(3, (h, w)), _randn(4, (fh, fw))
+    out = _conv_mirror(x, f, sh, bw)
+    assert torch.equal(torch.from_numpy(out),
+                       cv.conv2d_plain(torch.from_numpy(x),
+                                       torch.from_numpy(f)))
 
 
 def test_rejections_raise_before_launch_on_the_cpu():
