@@ -13,8 +13,9 @@ Phases (any failure ends the script with a non-zero exit):
   2. the build of every kernel from the ``.cu`` sources, in parallel, a
      check that the GEMM library's SASS holds wgmma (``HGMMA``) and TMA
      (``UTMALDG``) instructions, and ptxas' registers and spills of each
-     (G, T) instantiation of the dedispersion kernel and each (filter
-     width, R) instantiation of the convolution kernel (a spill fails);
+     (G, T) instantiation of the dedispersion kernel, each (filter
+     width, R) instantiation of the convolution kernel and each R
+     instantiation of the hotspot kernel (a spill fails);
   3. each kernel against its plain PyTorch version on the card: the GEMM at
      tests/test_kernels.py's shapes in float32 and bf16 and at the hub size
      4096^3 bf16 at six tilings (the hub's, an irregular one, and four
@@ -25,8 +26,11 @@ Phases (any failure ends the script with a non-zero exit):
      float32 term); the convolution bit-identical at tests/test_kernels.py's
      shapes (one 130 wide), with a filter width read at run time, and at
      the hub size at five tilings, each with its launch plan printed and
-     timed, beside the no-contraction floor; hotspot (t_block 1, 4, 16) at
-     its test shape and the hub size, within 1e-4; dedispersion
+     timed, beside the no-contraction floor; hotspot bit-identical at its
+     test shape (t_block 1, 2, 4) and at the hub size at (64,512) with
+     t_block 4, 1 and 16 and at (8,128,3), (256,1024,8) and
+     (1024,4096,16), each with its launch plan printed and timed, beside
+     the bytes bound and the on-chip floor; dedispersion
      bit-identical at its test
      shape (also with an adversarial delay table and with ntime not a
      multiple of 4) and at the hub size at five tilings, each with its
@@ -107,8 +111,11 @@ CONV_SHAPES = [(64, 128, 5, 5, 32, 128), (96, 130, 3, 7, 48, 96),
 # a tile, the smallest tile and the largest (8 blocks)
 CONV_HUB_TILINGS = [(64, 256), (48, 320), (24, 256), (8, 96), (512, 4096)]
 HOT_TOL, CONV_TOL, DEDISP_TOL = 1e-4, 1e-3, 1e-4
-HOT_HUB_TILING = (64, 512)                    # (strip_h, block_w)
-HOT_T_BLOCKS = (1, 4, 16)
+# (strip_h, block_w, t_block) at the hub size: the hub tiling at t_block 4
+# (timed in the JSON row), 1 and 16, the smallest tile (one run of 16 rows
+# a thread), 52 sub-tiles a tile, and the largest tile (4 blocks)
+HOT_HUB_CASES = [(64, 512, 4), (64, 512, 1), (64, 512, 16), (8, 128, 3),
+                 (256, 1024, 8), (1024, 4096, 16)]
 DEDISP_TILINGS = [(8, 256), (4, 192), (16, 128)]
 # the hub tiling (timed in the JSON row), a non-dividing one, the smallest
 # tile, a T=2 plan and the largest tile
@@ -259,6 +266,14 @@ def check_conv_build(log: str) -> None:
     check_instantiations(
         "convolution", log, r"conv2d_kernelILi(\d+)ELi(\d+)E",
         set(cv.INSTANTIATIONS.items()), "fw {} R {}")
+
+
+def check_hotspot_build(log: str) -> None:
+    """Registers and spills of each R instantiation of the hotspot kernel;
+    a spill fails."""
+    from repro_torch.kernels import hotspot as hs
+    check_instantiations("hotspot", log, r"hotspot_kernelILi(\d+)E",
+                         {(hs.ROWS,)}, "R {}")
 
 
 def check_sass(lib: pathlib.Path) -> None:
@@ -460,32 +475,51 @@ def check_conv(device: str) -> dict:
 
 
 def check_hotspot(device: str) -> dict:
-    """Hotspot kernel vs ``hotspot_plain`` at t_block 1, 2, 4 (test shape)
-    and 1, 4, 16 (hub size); the JSON row is t_block 4 at the hub size."""
+    """Hotspot kernel vs ``hotspot_plain``, bit for bit, at the test shape
+    (t_block 1, 2, 4) and at the hub size at every case of HOT_HUB_CASES,
+    each with its launch plan printed and timed beside the bytes bound and
+    the on-chip floor; the JSON row at the first."""
     from repro_torch.kernels import hotspot as hs
     rng = np.random.default_rng(3)
     t, p = randn(rng, (64, 128), device), randn(rng, (64, 128), device, 0.1)
     for tb in (1, 2, 4):
-        agree(f"hotspot 64x128 tiles (32,128) t_block {tb}",
+        exact(f"hotspot 64x128 tiles (32,128) t_block {tb}",
               hs.hotspot(t, p, strip_h=32, block_w=128, t_block=tb),
-              hs.hotspot_plain(t, p, t_block=tb), HOT_TOL)
+              hs.hotspot_plain(t, p, t_block=tb), HOT_TOL, "hotspot_plain")
     t, p = randn(rng, (HUB, HUB), device), randn(rng, (HUB, HUB), device, 0.1)
-    sh, bw = HOT_HUB_TILING
     bytes_ms = (nbytes(t, p) + HUB * HUB * 4) / PEAK_BYTES * 1e3
     row = None
-    for tb in HOT_T_BLOCKS:
-        err = agree(f"hotspot {HUB}^2 tiles ({sh},{bw}) t_block {tb}",
+    for sh, bw, tb in HOT_HUB_CASES:
+        pl = hs.plan(sh, bw, tb)
+        n_tiles = (HUB // sh) * (HUB // bw)
+        cells, words = (n_tiles * x for x in pl.work(sh, bw))
+        print(f"  plan ({sh},{bw},{tb}): {pl.instantiation}, threads "
+              f"{pl.threads_x} x {pl.threads_y} ({pl.threads}), sub-tile "
+              f"{pl.sub_h} x {pl.sub_w} ({pl.sub_tiles(sh, bw)} a tile, "
+              f"{n_tiles} tiles), pitch {pl.pitch}, {pl.shared_bytes} B "
+              f"shared; {cells} cell-steps ({cells / (HUB * HUB * tb):.3f}x "
+              f"the grid's), {words} shared words")
+        err = exact(f"hotspot {HUB}^2 tiles ({sh},{bw}) t_block {tb}",
                     hs.hotspot(t, p, strip_h=sh, block_w=bw, t_block=tb),
-                    hs.hotspot_plain(t, p, t_block=tb), HOT_TOL)
+                    hs.hotspot_plain(t, p, t_block=tb), HOT_TOL,
+                    "hotspot_plain")
         ms = time_ms(lambda: hs.hotspot(t, p, strip_h=sh, block_w=bw,
                                         t_block=tb))
-        plain_ms = time_ms(lambda: hs.hotspot_plain(t, p, t_block=tb))
         ops_ms = 8.0 * HUB * HUB * tb / PEAK_F32_FLOPS * 1e3
+        # on chip: 8 float32 instructions a cell-step of the pyramid, and
+        # its shared-memory words at 32 a clock an SM
+        f32_ms = 8.0 * cells / PEAK_F32_ADDS * 1e3
+        smem_ms = words / SMEM_WORDS * 1e3
+        floor_ms = max(bytes_ms, f32_ms, smem_ms)
         print(f"  hotspot {HUB}^2 ({sh},{bw}) t_block {tb}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, "
-              f"bytes {bytes_ms:.4f})")
-        if tb == 4:
+              f"{ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} ms "
+              f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f}), on-chip "
+              f"floor {floor_ms:.4f} ms (float32 {f32_ms:.4f}, shared "
+              f"memory {smem_ms:.4f}), {ms / floor_ms:.2f}x the floor")
+        if row is None:
+            plain_ms = time_ms(lambda: hs.hotspot_plain(t, p, t_block=tb))
+            print(f"  hotspot plain ({sh},{bw}) t_block {tb}: "
+                  f"{plain_ms:.4f} ms")
             row = kernel_row("hotspot", "src/repro_torch/kernels/csrc/"
                              "hotspot.cu", "src/repro/kernels/hotspot.py:49",
                              err, ms, plain_ms, ops_ms, bytes_ms, None)
@@ -953,6 +987,7 @@ def main() -> int:
     check_sass(cuda.library_path("gemm"))
     check_dedisp_build(cuda.build_log("dedispersion"))
     check_conv_build(cuda.build_log("convolution"))
+    check_hotspot_build(cuda.build_log("hotspot"))
 
     print("[3] kernels against their plain versions")
     kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),

@@ -8,12 +8,11 @@ marked ``cuda`` and skip with a reason without one. The file imports only
 
 Tolerances: the GEMM ``RTOL[dtype]·√k`` of tests/test_kernels.py (the
 kernel sums over K in another order than the plain float32 matmul);
-hotspot 1e-4, tests/test_kernels.py's (its kernel keeps the plain
-version's order of operations without FMA contraction, and chip_smoke.py
-reports its max |err|); the convolution and dedispersion none —
-bit-identical (``torch.equal``: the convolution's taps dy outer, dx inner,
-``__fmul_rn`` then ``__fadd_rn``; dedispersion's channel-order
-``__fadd_rn``, as the plain versions compute);
+hotspot, the convolution and dedispersion none — bit-identical
+(``torch.equal``: hotspot's steps in ``_stencil_once``'s order, the
+convolution's taps dy outer, dx inner, ``__fmul_rn`` then ``__fadd_rn``;
+dedispersion's channel-order ``__fadd_rn``, as the plain versions
+compute);
 flash attention
 ``RTOL[dtype]`` and the SSD scan 3e-3, tests/test_kernels.py's (online
 softmax and chunked sums reorder the adds); the budget scan and the replay
@@ -224,6 +223,15 @@ def test_conv_launch_refuses_a_plan_outside_its_limits(card):
 @pytest.mark.parametrize("h,w,sh,bw,tb", [
     (64, 128, 32, 128, 1), (64, 128, 32, 128, 2), (64, 128, 32, 128, 4),
     (256, 512, 64, 128, 16),
+    # one case per plan class (tests/test_torch_hub_kernels.py, HOT_PLANS)
+    (128, 512, 64, 512, 4),           # the hub tiling: 6 sub-tiles, last moved
+    (128, 512, 64, 512, 16),          # 2 x 6 sub-tiles, t_block 16
+    (64, 256, 8, 128, 3),             # one run of 16 rows a thread
+    (64, 128, 32, 128, 16),           # the hub's deepest pyramid
+    (512, 2048, 256, 1024, 8),        # 52 sub-tiles a tile
+    (80, 96, 40, 32, 3),              # non-square grid, narrow tiles
+    (40, 36, 8, 12, 16),              # halo wider than the tile
+    (48, 160, 48, 160, 20),           # two launches (16 + 4)
 ])
 def test_hotspot_kernel_matches_plain(card, h, w, sh, bw, tb):
     rng = np.random.default_rng(3)
@@ -231,9 +239,37 @@ def test_hotspot_kernel_matches_plain(card, h, w, sh, bw, tb):
     before = hs.launches
     out = hs.hotspot(t, p, strip_h=sh, block_w=bw, t_block=tb)
     torch.cuda.synchronize()
-    assert hs.launches == before + 1
-    torch.testing.assert_close(out, hs.hotspot_plain(t, p, t_block=tb),
-                               rtol=1e-4, atol=1e-4)
+    assert hs.launches == before + len(hs._launch_steps(tb))
+    assert torch.equal(out, hs.hotspot_plain(t, p, t_block=tb))
+
+
+def test_hotspot_launch_refuses_a_plan_outside_its_limits(card):
+    """The C side checks the plan against its own limits and launches
+    nothing for one it cannot run (cudaErrorInvalidValue)."""
+    rng = np.random.default_rng(4)
+    t, p = _randn(rng, (64, 128), card), _randn(rng, (64, 128), card, 0.1)
+    out = torch.full((64, 128), 7.0, device=card)
+    pl = hs.plan(32, 128, 4)
+    args = [pl.t_block, pl.rows, pl.threads_x, pl.threads_y, pl.sub_h,
+            pl.sub_w, pl.pitch, pl.shared_bytes]
+    lib = hs._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, bad in ((0, hs.MAX_STEPS + 1), (1, 8), (2, pl.threads_x + 1),
+                   (3, hs.MAX_THREADS), (4, pl.sub_h + 32),
+                   (5, pl.threads_x), (6, pl.pitch + 1),
+                   (7, pl.shared_bytes + 4)):
+        wrong = list(args)
+        wrong[i] = bad
+        assert lib.repro_hotspot(t.data_ptr(), p.data_ptr(), out.data_ptr(),
+                                 64, 128, 32, 128, *wrong, stream) == 1
+    assert lib.repro_hotspot(t.data_ptr(), p.data_ptr(), out.data_ptr(), 64,
+                             128, 48, 128, *args, stream) == 1
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    assert lib.repro_hotspot(t.data_ptr(), p.data_ptr(), out.data_ptr(), 64,
+                             128, 32, 128, *args, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, hs.hotspot_plain(t, p, t_block=4))
 
 
 @pytest.mark.parametrize("nchan,nt,ndm,bdm,bt", [

@@ -377,6 +377,177 @@ def test_conv_mirror_of_the_kernel_walk_equals_plain(h, w, fh, fw, sh, bw):
                                        torch.from_numpy(f)))
 
 
+# (strip_h, block_w, t_block) -> (threads x, threads y, sub_h, sub_w,
+# sub-tiles a tile, shared bytes) at R = 16
+HOT_PLANS = {
+    (64, 512, 4): (96, 5, 64, 86, 6, 61440),        # the hub tiling
+    (64, 512, 1): (96, 5, 64, 86, 6, 61440),
+    (64, 512, 16): (128, 4, 32, 86, 12, 65536),     # 2 x 6 sub-tiles
+    (8, 128, 3): (160, 1, 8, 128, 1, 20480),        # one run, one sub-tile
+    (32, 128, 4): (160, 3, 32, 128, 1, 61440),      # the whole tile
+    (256, 1024, 8): (96, 5, 64, 79, 52, 61440),     # 4 x 13 sub-tiles
+    (1024, 4096, 16): (128, 4, 32, 96, 1376, 65536),  # the largest tile
+}
+
+
+@pytest.mark.parametrize("tiling", sorted(HOT_PLANS))
+def test_hotspot_plan_classes_are_pinned(tiling):
+    pl = hs.plan(*tiling)
+    sh, bw, tb = tiling
+    assert (pl.threads_x, pl.threads_y, pl.sub_h, pl.sub_w,
+            pl.sub_tiles(sh, bw), pl.shared_bytes) == HOT_PLANS[tiling]
+    assert (pl.t_block, pl.rows, pl.pitch) == (tb, hs.ROWS, pl.threads_x)
+
+
+def test_hotspot_plan_runs_every_hub_tiling():
+    """``plan`` refuses 0 of the 5,040 hub configs, stays within a block's
+    threads and shared memory (two blocks an SM by both), holds each
+    halo'd sub-tile in whole warps and runs, keeps sub-tiles inside the
+    tile, and reaches every instantiation of the kernel."""
+    space = hs.space()
+    configs = [space.as_dict(c) for c in space.valid_configs]
+    assert len(configs) == 5040
+    plans = {(c["strip_h"], c["block_w"], c["t_block"]):
+             hs.plan(c["strip_h"], c["block_w"], c["t_block"])
+             for c in configs}
+    assert len(plans) == 630 and sum(p is None for p in plans.values()) == 0
+    for (sh, bw, tb), pl in plans.items():
+        assert pl.shared_bytes <= hs.MAX_SMEM_BYTES <= 232448 // 2
+        assert pl.shared_bytes == 2 * pl.threads_y * pl.rows * pl.pitch * 4
+        assert pl.threads <= hs.MAX_THREADS and pl.threads_x % 32 == 0
+        assert pl.sub_w + 2 * tb <= pl.threads_x < pl.sub_w + 2 * tb + 32
+        assert pl.sub_h + 2 * tb <= pl.threads_y * pl.rows
+        assert pl.sub_h + 2 * tb > (pl.threads_y - 1) * pl.rows
+        assert 1 <= pl.sub_h <= sh and 1 <= pl.sub_w <= bw
+    assert {p.rows for p in plans.values()} == {hs.ROWS}
+
+
+def test_hotspot_launch_steps_and_plan_limits():
+    """More than ``MAX_STEPS`` fused steps run as several launches of at
+    most ``MAX_STEPS``; ``plan`` refuses what the kernel cannot run."""
+    assert hs._launch_steps(16) == [16]
+    assert hs._launch_steps(40) == [16, 16, 8]
+    assert hs._launch_steps(32) == [16, 16]
+    assert hs.plan(8, 128, 17) is None and hs.plan(0, 128, 1) is None
+    assert hs.plan(8, 128, 0) is None and hs.plan(1, 1, 16) is not None
+
+
+def _hot_mirror(t: np.ndarray, p: np.ndarray, strip_h: int, block_w: int,
+                t_block: int, margin: int = 0, pitch_off: int = 0
+                ) -> np.ndarray:
+    """csrc/hotspot.cu's walk in numpy, on float32, one launch a chunk of
+    ``hs._launch_steps``: per tile its sub-tiles in order (the last of a
+    row or column moved back to the tile's edge), each halo'd sub-tile
+    loaded once with the wrap only where it touches the grid's edge,
+    P less its outer ring, threads' runs of R cells in registers, each
+    step published to one of two flat planes of ``pitch``-wide rows,
+    left and right read from the plane, up and down from the run except
+    at its ends, cells inside the step's margin updated, the interior
+    written. ``margin`` and ``pitch_off`` mutate it (a narrower pyramid,
+    plane reads with a wrong pitch) to show the test can fail."""
+    h, w = t.shape
+    f32 = np.float32
+    cur = t
+    for steps in hs._launch_steps(t_block):
+        pl = hs.plan(strip_h, block_w, steps)
+        r_, tx, ty = pl.rows, pl.threads_x, pl.threads_y
+        rows, pitch, tb = ty * r_, pl.pitch, steps
+        sub_h, sub_w = pl.sub_h, pl.sub_w
+        hh, hw = sub_h + 2 * tb, sub_w + 2 * tb
+        out = np.full((h, w), np.nan, f32)
+        planes = np.full((2, rows * pitch), np.nan, f32)
+        row, col = np.arange(rows)[:, None], np.arange(tx)[None, :]
+        parity = 0
+        for tr in range(0, h, strip_h):
+            for tc in range(0, w, block_w):
+                for sy in range(-(-strip_h // sub_h)):
+                    r0 = tr + min(sy * sub_h, strip_h - sub_h)
+                    for sx in range(-(-block_w // sub_w)):
+                        c0 = tc + min(sx * sub_w, block_w - sub_w)
+                        edge = (r0 < tb or r0 + sub_h + tb > h or c0 < tb
+                                or c0 + sub_w + tb > w)
+                        gr = r0 - tb + row + 0 * col
+                        gc = c0 - tb + col + 0 * row
+                        if edge:
+                            gr = np.where(gr < 0, gr + h,
+                                          np.where(gr >= h, gr - h, gr))
+                            gc = np.where(gc < 0, gc + w,
+                                          np.where(gc >= w, gc - w, gc))
+                        held = (row < hh) & (col < hw)
+                        assert ((gr[held] >= 0) & (gr[held] < h)).all()
+                        assert ((gc[held] >= 0) & (gc[held] < w)).all()
+                        grc, gcc = np.clip(gr, 0, h - 1), np.clip(gc, 0, w - 1)
+                        tv = np.where(held, cur[grc, gcc], f32(0))
+                        inner = ((row >= 1) & (row < hh - 1) & (col >= 1)
+                                 & (col < hw - 1))
+                        pv = np.where(inner, p[grc, gcc], f32(0))
+                        for s in range(1, tb + 1):
+                            flat = planes[parity]
+                            parity ^= 1
+                            flat[(row * pitch + col).ravel()] = tv.ravel()
+                            m = s + margin
+                            rr, cc = np.nonzero((row >= m) & (row < hh - m)
+                                                & (col >= m) & (col < hw - m))
+                            q = rr * (pitch + pitch_off) + cc
+                            for k in (q - 1, q + 1, q - pitch, q + pitch):
+                                assert ((k >= 0) & (k < rows * pitch)).all()
+                            top, bottom = rr % r_ == 0, rr % r_ == r_ - 1
+                            up = np.where(top, flat[np.clip(q - pitch, 0, None)],
+                                          tv[np.maximum(rr - 1, 0), cc])
+                            down = np.where(
+                                bottom, flat[np.clip(q + pitch, None,
+                                                     rows * pitch - 1)],
+                                tv[np.minimum(rr + 1, rows - 1), cc])
+                            neigh = ((up + down) + flat[q - 1]) + flat[q + 1]
+                            new = ((f32(hs.C_CENTER) * tv[rr, cc]
+                                    + f32(hs.C_NEIGH) * neigh)
+                                   + f32(hs.C_POWER) * pv[rr, cc])
+                            tv = tv.copy()
+                            tv[rr, cc] = new
+                        keep = ((row >= tb) & (row < tb + sub_h)
+                                & (col >= tb) & (col < tb + sub_w))
+                        out[(r0 - tb + row + 0 * col)[keep],
+                            (c0 - tb + col + 0 * row)[keep]] = tv[keep]
+        cur = out
+    return cur
+
+
+HOT_MIRROR_CASES = [  # (h, w, strip_h, block_w, t_block)
+    (64, 128, 32, 128, 1),
+    (64, 128, 32, 128, 2),
+    (64, 128, 32, 128, 4),
+    (64, 128, 32, 128, 16),           # the hub's deepest pyramid
+    (128, 512, 64, 512, 4),           # the hub tiling: 6 sub-tiles, last moved
+    (80, 96, 40, 32, 3),              # non-square grid, narrow tiles
+    (40, 36, 8, 12, 16),              # halo wider than the tile: wraps twice
+    (48, 160, 48, 160, 20),           # two launches (16 + 4)
+]
+
+
+@pytest.mark.parametrize("h,w,sh,bw,tb", HOT_MIRROR_CASES)
+def test_hotspot_mirror_of_the_kernel_walk_equals_plain(h, w, sh, bw, tb):
+    t, p = _randn(3, (h, w)), _randn(4, (h, w), 0.1)
+    out = _hot_mirror(t, p, sh, bw, tb)
+    assert torch.equal(torch.from_numpy(out), hs.hotspot_plain(
+        torch.from_numpy(t), torch.from_numpy(p), t_block=tb))
+
+
+@pytest.mark.parametrize("mutation", [{"margin": 1}, {"pitch_off": 1}])
+def test_hotspot_mirror_fails_when_mutated(mutation):
+    """The mirror test can fail: a pyramid one cell too narrow, or plane
+    reads one float off the pitch, change the result or read outside the
+    planes."""
+    h, w, sh, bw, tb = 64, 128, 32, 128, 4
+    t, p = _randn(3, (h, w)), _randn(4, (h, w), 0.1)
+    ref = hs.hotspot_plain(torch.from_numpy(t), torch.from_numpy(p),
+                           t_block=tb)
+    try:
+        out = _hot_mirror(t, p, sh, bw, tb, **mutation)
+    except AssertionError:
+        return
+    assert not torch.equal(torch.from_numpy(out), ref)
+
+
 def test_rejections_raise_before_launch_on_the_cpu():
     """A tiling ``fits`` refuses raises ``ConfigRejected`` on CPU tensors
     too, so a CPU recording stores it as a failed config, like the card."""
