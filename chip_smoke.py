@@ -14,8 +14,9 @@ Phases (any failure ends the script with a non-zero exit):
      check that the GEMM library's SASS holds wgmma (``HGMMA``) and TMA
      (``UTMALDG``) instructions, and ptxas' registers and spills of each
      (G, T) instantiation of the dedispersion kernel, each (filter
-     width, R) instantiation of the convolution kernel and each R
-     instantiation of the hotspot kernel (a spill fails);
+     width, R) instantiation of the convolution kernel, each R
+     instantiation of the hotspot kernel and each (bf16, d_max, threads,
+     sub_kv) instantiation of the flash-attention kernel (a spill fails);
   3. each kernel against its plain PyTorch version on the card: the GEMM at
      tests/test_kernels.py's shapes in float32 and bf16 and at the hub size
      4096^3 bf16 at six tilings (the hub's, an irregular one, and four
@@ -39,7 +40,8 @@ Phases (any failure ends the script with a non-zero exit):
      shapes
      (GQA group 2; causal, non-causal, window 64; float32 and bf16, RTOL)
      and at starcoder2-7b's width (36 q heads over 4 kv heads, 4096
-     tokens, d 128, float32, causal) at a small and the largest tiling;
+     tokens, d 128, float32, causal) at (128,128), (64,128), (256,512)
+     and (1024,2048), each with its launch plan printed and timed;
      the SSD scan at its test shapes (chunks 32, 64, 128) and at
      mamba2-130m's width (24 heads x 8 sequences of 4096, P 64, N 128) at
      chunks 128 and 512, within 3e-3; the budget scan over 1024 runs of
@@ -157,8 +159,9 @@ RECORD_EVALS = {"gemm": 512, "convolution": 1024, "hotspot": 1024,
 RECORD_SECONDS = {"gemm": 150.0, "convolution": 60.0, "hotspot": 60.0,
                   "dedispersion": 60.0, "flash_attention": 60.0,
                   "ssd": 60.0}
-# (block_q, block_kv) and chunk: a small tiling, and the largest
-ATTN_TILINGS = [(128, 128), (1024, 2048)]
+# (block_q, block_kv) at full width: the JSON row's tiling, the narrow
+# block's, a middle one and the largest; and chunk: a small one, the largest
+ATTN_TILINGS = [(128, 128), (64, 128), (256, 512), (1024, 2048)]
 SSD_CHUNKS = (128, 512)
 SSD_TOL = 3e-3               # tests/test_kernels.py
 STRATEGIES = ("random_search", "genetic_algorithm", "simulated_annealing",
@@ -274,6 +277,16 @@ def check_hotspot_build(log: str) -> None:
     from repro_torch.kernels import hotspot as hs
     check_instantiations("hotspot", log, r"hotspot_kernelILi(\d+)E",
                          {(hs.ROWS,)}, "R {}")
+
+
+def check_attention_build(log: str) -> None:
+    """Registers and spills of each (bf16, d_max, threads, sub_kv)
+    instantiation of the flash-attention kernel; a spill fails."""
+    from repro_torch.kernels import flash_attention as fa
+    check_instantiations(
+        "flash_attention", log,
+        r"attn_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+        set(fa.INSTANTIATIONS), "bf16 {} D {} threads {} sub_kv {}")
 
 
 def check_sass(lib: pathlib.Path) -> None:
@@ -602,9 +615,9 @@ def check_dedisp(device: str) -> dict:
 
 def check_attention(device: str) -> dict:
     """Flash-attention kernel vs ``attention_plain`` at tests/test_kernels.py's
-    shapes, then at starcoder2-7b's width at a small and the largest tiling;
-    times at the small one, with SDPA (float32, TF32 off) as the
-    yardstick."""
+    shapes, then at starcoder2-7b's width at every tiling of ATTN_TILINGS,
+    each with its launch plan printed and timed; the JSON row at the
+    first, with SDPA (float32, TF32 off) as the yardstick."""
     from repro_torch.kernels import flash_attention as fa
     rng = np.random.default_rng(6)
     for dtype in (torch.float32, torch.bfloat16):
@@ -623,26 +636,33 @@ def check_attention(device: str) -> dict:
     q = randn(rng, (bh, s, d), device)
     k, v = randn(rng, (bh_kv, s, d), device), randn(rng, (bh_kv, s, d), device)
     ref = fa.attention_plain(q, k, v, causal=True)
-    err = max(agree(f"flash_attention {bh}x{s}x{d} over {bh_kv} kv heads "
-                    f"causal tiles ({bq},{bkv})",
-                    fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv),
-                    ref, RTOL[torch.float32])
-              for bq, bkv in ATTN_TILINGS)
-    del ref
     flops = 4.0 * bh * s * s * d * 0.5
+    err, times = 0.0, {}
+    for bq, bkv in ATTN_TILINGS:
+        pl = fa.plan(bq, bkv, s, d)
+        print(f"  plan ({bq},{bkv}): {pl.instantiation}, {pl.groups} row "
+              f"groups of {pl.rows} rows, q sub-tile {pl.sub_q} "
+              f"({pl.q_sub_tiles(bq)} a tile), kv sub-tile {pl.sub_kv}, "
+              f"pitch {pl.pitch}, {bh * (s // bq)} blocks")
+        err = max(err, agree(
+            f"flash_attention {bh}x{s}x{d} over {bh_kv} kv heads causal "
+            f"tiles ({bq},{bkv})",
+            fa.flash_attention(q, k, v, block_q=bq, block_kv=bkv), ref,
+            RTOL[torch.float32]))
+        times[bq, bkv] = time_ms(lambda: fa.flash_attention(
+            q, k, v, block_q=bq, block_kv=bkv))
+        print(f"  flash_attention {bh}x{s}x{d} causal ({bq},{bkv}): kernel "
+              f"{times[bq, bkv]:.4f} ms "
+              f"({flops / times[bq, bkv] / 1e9:.2f} TFLOP/s)")
+    del ref
     ops_ms = flops / PEAK_F32_FLOPS * 1e3
     bytes_ms = (nbytes(q, k, v) + q.numel() * 4) / PEAK_BYTES * 1e3
-    times = {t: time_ms(lambda: fa.flash_attention(
-        q, k, v, block_q=t[0], block_kv=t[1])) for t in ATTN_TILINGS}
     plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, causal=True),
                        reps=3, warmup=1)
     # yardstick only: one PyTorch call computing the same function
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(q[None], k[None], v[None],
                                       is_causal=True, enable_gqa=True))
-    for (bq, bkv), ms in times.items():
-        print(f"  flash_attention {bh}x{s}x{d} causal ({bq},{bkv}): kernel "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s)")
     print(f"  flash_attention plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
           f"ms, bound {max(ops_ms, bytes_ms):.4f} ms (operations "
           f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
@@ -988,6 +1008,7 @@ def main() -> int:
     check_dedisp_build(cuda.build_log("dedispersion"))
     check_conv_build(cuda.build_log("convolution"))
     check_hotspot_build(cuda.build_log("hotspot"))
+    check_attention_build(cuda.build_log("flash_attention"))
 
     print("[3] kernels against their plain versions")
     kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),

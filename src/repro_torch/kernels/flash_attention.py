@@ -2,24 +2,30 @@
 
 Port of ``src/repro/kernels/flash_attention.py``. The Pallas TPU kernel
 ``_attn_kernel``/``flash_attention`` becomes the hand-written CUDA kernel
-``csrc/flash_attention.cu`` (its header says what bounds it on the H100,
-how a tile larger than shared memory is walked, and which fully masked kv
-tiles it skips); ``flash_attention`` here is its wrapper and
+``csrc/flash_attention.cu`` (its header says what bounds it on the H100
+and what its design does about it: row groups of 8 lanes that hold scores,
+accumulator and softmax state in registers, operands read as float4 from
+shared memory, k/v sub-tiles staged by a ``cp.async`` ring, masks only on
+the sub-tiles that need them); ``flash_attention`` here is its wrapper and
 ``attention_plain`` the same function in plain PyTorch: the reference's
 ``attention_ref``, S x S float32 logits per head with the finite
 ``NEG_INF`` mask, then a softmax. The search space, the problem sizes and
 the cost-model ``workload()`` are the reference's, unchanged, so config
 ids agree across the two packages.
 
-``block_q`` and ``block_kv`` are runtime arguments of one compiled kernel.
-``acc_dtype`` stays cost-model-only, as in the reference's ``make_live``.
-A problem the kernel cannot run (``fits`` is false: a head dimension
-above 128) raises ``ConfigRejected`` before any launch, on the CPU as on
-the card.
+``plan`` turns a tiling into the kernel's instantiation and launch shape,
+on the CPU as on the card; ``block_q`` and ``block_kv`` keep their meaning
+(one block a (head, block_q) q tile, the visited kv tiles walked in
+order). ``acc_dtype`` stays cost-model-only, as in the reference's
+``make_live``. A problem the kernel cannot run (``fits`` is false: a head
+dimension above 128) raises ``ConfigRejected`` before any launch, on the
+CPU as on the card.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Mapping
 
 import torch
@@ -38,9 +44,20 @@ NEG_INF = -1e30
 # GQA group of 2, short sequence
 SMOKE_PROBLEM = {"bh": 4, "bh_kv": 2, "seq": 256, "d": 64}
 
-# limit of csrc/flash_attention.cu (checked against the library when it
-# loads): the head dimensions its shared-memory staging holds
+# limits of csrc/flash_attention.cu (checked against the library when it
+# loads): the head dimensions its shared-memory staging holds, the q rows a
+# row group owns, the ring's slots (each a k or a v sub-tile)
 MAX_D = 128
+ROWS = 4
+STAGES = 3
+LANES = 8                # lanes of a row group
+# (threads, kv rows a sub-tile) of the two block shapes the kernel is built
+# for: a 128-row q sub-tile in one 256-thread block an SM, and a 64-row one
+# in two 128-thread blocks an SM
+WIDE, NARROW = (256, 64), (128, 32)
+# the kernel's instantiations: (bf16, d_max, threads, sub_kv)
+INSTANTIATIONS = tuple((bf16, d_max, *shape) for bf16 in (0, 1)
+                       for d_max in (64, MAX_D) for shape in (WIDE, NARROW))
 
 # kernel launches by ``flash_attention`` (plain-version calls on the CPU do
 # not count)
@@ -48,32 +65,94 @@ launches = 0
 
 
 # ----------------------------------------------------------------- kernel
+@dataclass(frozen=True)
+class Plan:
+    """How csrc/flash_attention.cu runs one tiling: the instantiation
+    (``bf16``, ``d_max``, ``threads``, ``sub_kv``); the rest follows.
+
+    ``threads`` threads make ``threads / 8`` row groups of 8 lanes; a group
+    owns ``rows`` rows of each q sub-tile of ``sub_q`` rows (row r·groups +
+    group) for the scores, and two neighbouring groups share their rows
+    for the accumulator. The block stages the q sub-tile once and k and v
+    sub-tiles of ``sub_kv`` rows through a ring of ``stages`` slots (k of
+    a sub-tile, then its v), all as float32 rows of ``pitch`` =
+    ``d_max`` + 4 floats (head dims up to ``d_max``, the rest zero)."""
+    bf16: bool
+    d_max: int
+    threads: int
+    sub_kv: int
+    rows = ROWS
+    stages = STAGES
+
+    @property
+    def groups(self) -> int:
+        return self.threads // LANES
+
+    @property
+    def sub_q(self) -> int:
+        return self.groups * ROWS
+
+    @property
+    def pitch(self) -> int:
+        return self.d_max + 4
+
+    @property
+    def instantiation(self) -> str:
+        return (f"attn_kernel<{'bf16' if self.bf16 else 'f32'}, D "
+                f"{self.d_max}, {self.threads} threads, sub_kv "
+                f"{self.sub_kv}>")
+
+    def q_sub_tiles(self, block_q: int) -> int:
+        """Q sub-tiles a block walks for one q tile."""
+        return -(-block_q // self.sub_q)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(block_q: int, block_kv: int, s: int, d: int,
+         dtype: torch.dtype = torch.float32) -> Plan | None:
+    """The launch plan of one tiling for a sequence of ``s`` tokens and
+    head dimension ``d``, or None where the kernel cannot run it (a tile
+    below 1 or not dividing ``s``, d outside 1..``MAX_D``, a dtype other
+    than float32 and bf16). The rule: head dims staged to 64 when d <= 64,
+    else to 128; a q tile of at most 64 rows takes the ``NARROW`` block
+    (64-row q and 32-row kv sub-tiles, two blocks an SM), a larger one the
+    ``WIDE`` block (128-row q and 64-row kv sub-tiles)."""
+    if (dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= MAX_D
+            or block_q < 1 or block_kv < 1 or s < 1 or s % block_q
+            or s % block_kv):
+        return None
+    return Plan(dtype == torch.bfloat16, 64 if d <= 64 else MAX_D,
+                *(NARROW if block_q <= 64 else WIDE))
+
+
 def fits(config: Mapping, problem: Mapping | None = None) -> bool:
     """Whether csrc/flash_attention.cu can run this tiling for ``problem``
-    (default: the smoke size): a head dimension of at most ``MAX_D``. Any
+    (default: the smoke size): its ``plan`` is not None, so a head
+    dimension of at most ``MAX_D`` and tiles that divide the sequence. Any
     block_q x block_kv tile runs: the block walks it in sub-tiles that fit
     its shared memory."""
     p = {**SMOKE_PROBLEM, **(problem or {})}
-    return 1 <= p["d"] <= MAX_D
+    return plan(config["block_q"], config["block_kv"], p["seq"],
+                p["d"]) is not None
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda.library("flash_attention")
     if lib.repro_flash_attention.argtypes is None:
-        limit = ctypes.c_int()
+        limits = [ctypes.c_int() for _ in range(3)]
         lib.repro_flash_attention_limits.argtypes = [
-            ctypes.POINTER(ctypes.c_int)]
+            ctypes.POINTER(ctypes.c_int)] * 3
         lib.repro_flash_attention_limits.restype = None
-        lib.repro_flash_attention_limits(ctypes.byref(limit))
-        if limit.value != MAX_D:
-            raise RuntimeError(f"csrc/flash_attention.cu head-dim limit "
-                               f"{limit.value} disagrees with the wrapper's "
-                               f"{MAX_D}")
+        lib.repro_flash_attention_limits(*map(ctypes.byref, limits))
+        got = tuple(x.value for x in limits)
+        want = (MAX_D, ROWS, STAGES)
+        if got != want:
+            raise RuntimeError(f"csrc/flash_attention.cu limits {got} "
+                               f"disagree with the wrapper's {want}")
         lib.repro_flash_attention.restype = ctypes.c_int
         lib.repro_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                          ctypes.c_int,
-                                                          ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
 
 
@@ -107,9 +186,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int | None = None) -> torch.Tensor:
     """q: (BH, S, D); k/v: (BH_kv, S, D) with BH % BH_kv == 0 (GQA: q head
     h reads kv head h // (BH / BH_kv)), float32 or bf16, the reference's
-    layout. The CUDA kernel for tensors on the card, ``attention_plain``
-    for tensors on the CPU. Raises ``ConfigRejected`` for a problem
-    ``fits`` refuses, on either device."""
+    layout. The CUDA kernel for tensors on the card, launched as ``plan``
+    says, and ``attention_plain`` for tensors on the CPU. Raises
+    ``ConfigRejected`` for a problem ``plan`` refuses, on either device; a
+    plan the C side refuses raises ``RuntimeError`` without a launch."""
     global launches
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
             or k.shape[1:] != q.shape[1:]:
@@ -130,10 +210,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"tokens in tiles of {block_q}x{block_kv}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    conf = {"block_q": block_q, "block_kv": block_kv}
-    if not fits(conf, {"d": d}):
-        raise ConfigRejected(f"tiling {conf} with d={d} does not fit "
-                             f"csrc/flash_attention.cu")
+    pl = plan(block_q, block_kv, s, d, q.dtype)
+    if pl is None:
+        raise ConfigRejected(f"tiling ({block_q},{block_kv}) with d={d} does "
+                             f"not fit csrc/flash_attention.cu")
     if not q.device == k.device == v.device:
         raise ValueError("flash_attention operands lie on different devices")
     if q.device.type == "cpu":
@@ -148,8 +228,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
         bh // bh_kv, block_q, block_kv, int(causal),
-        -1 if window is None else window, 1.0 / (d ** 0.5),
-        int(q.dtype == torch.bfloat16), cuda.stream_handle(q.device))
+        -1 if window is None else window, 1.0 / (d ** 0.5), int(pl.bf16),
+        pl.d_max, pl.threads, pl.sub_kv, cuda.stream_handle(q.device))
     cuda.check_launch(lib, rc, "flash_attention")
     launches += 1
     return out

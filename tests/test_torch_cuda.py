@@ -14,10 +14,11 @@ convolution's taps dy outer, dx inner, ``__fmul_rn`` then ``__fadd_rn``;
 dedispersion's channel-order ``__fadd_rn``, as the plain versions
 compute);
 flash attention
-``RTOL[dtype]`` and the SSD scan 3e-3, tests/test_kernels.py's (online
+``RTOL[dtype]`` (its card command: ``-k flash``) and the SSD scan 3e-3, tests/test_kernels.py's (online
 softmax and chunked sums reorder the adds); the budget scan and the replay
 engine none — bit-identical.
 """
+import dataclasses
 import random
 
 import numpy as np
@@ -374,6 +375,88 @@ def test_flash_attention_kernel_matches_plain(card, dtype, causal, window,
         out.float(), fa.attention_plain(q, k, v, causal=causal,
                                         window=window).float(),
         rtol=RTOL[dtype], atol=RTOL[dtype])
+
+
+# (q heads, kv heads, tokens, d, (block_q, block_kv), causal, window, dtype)
+FA_PLAN_CASES = [
+    (4, 2, 512, 128, (128, 128), True, None, torch.float32),   # d 128
+    (4, 2, 256, 66, (64, 128), True, None, torch.float32),     # 4-byte copies
+    (4, 2, 256, 66, (128, 64), False, 100, torch.bfloat16),
+    (2, 1, 2048, 128, (64, 2048), True, None, torch.float32),  # narrow block
+    (2, 1, 2048, 128, (1024, 2048), True, None, torch.float32),  # 8 q subs
+    (4, 2, 512, 64, (128, 128), True, 100, torch.float32),     # window 100
+    (4, 2, 512, 64, (256, 256), False, 100, torch.float32),
+    (18, 2, 256, 64, (128, 128), True, None, torch.bfloat16),  # GQA 9 bf16
+    (18, 2, 256, 128, (64, 256), True, 64, torch.bfloat16),
+    (2, 1, 192, 1, (96, 48), True, None, torch.float32),       # d 1, part subs
+]
+
+
+@pytest.mark.parametrize("bh,bh_kv,s,d,tiling,causal,window,dtype",
+                         FA_PLAN_CASES)
+def test_flash_attention_plan_classes_match_plain(card, bh, bh_kv, s, d,
+                                                  tiling, causal, window,
+                                                  dtype):
+    """Both block shapes and both staged widths of ``plan``: d 128 and d
+    66 (not a multiple of 4), q tiles of 64 and 1024 rows and kv tiles of
+    2048 on a 2048-token sequence, a window of 100 that crosses sub-tile
+    edges, GQA 9 in bf16, and d 1 with kv tiles of 48 (a part sub-tile)
+    and q tiles of 96 (fewer rows than a sub-tile)."""
+    rng = np.random.default_rng(8)
+    q = _randn(rng, (bh, s, d), card).to(dtype)
+    k, v = (_randn(rng, (bh_kv, s, d), card).to(dtype) for _ in range(2))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, block_q=tiling[0], block_kv=tiling[1],
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), fa.attention_plain(q, k, v, causal=causal,
+                                        window=window).float(),
+        rtol=RTOL[dtype], atol=RTOL[dtype])
+
+
+def test_flash_attention_launch_refuses_a_plan_outside_its_limits(
+        card, monkeypatch):
+    """The C side launches only the instantiations it was built for, and
+    nothing for a problem or plan outside its limits
+    (cudaErrorInvalidValue); the wrapper raises for such a plan without
+    counting a launch."""
+    rng = np.random.default_rng(4)
+    q = _randn(rng, (4, 256, 64), card)
+    k, v = (_randn(rng, (2, 256, 64), card) for _ in range(2))
+    out = torch.full((4, 256, 64), 7.0, device=card)
+    pl = fa.plan(128, 128, 256, 64)
+    args = [int(pl.bf16), pl.d_max, pl.threads, pl.sub_kv]
+    lib = fa._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(d, block_q, plan_args):
+        return lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 256,
+            d, 2, block_q, 128, 1, -1, 0.125, *plan_args, stream)
+
+    for i, bad in ((0, 2), (1, 96), (2, 512), (2, 128), (3, 32), (3, 16)):
+        wrong = list(args)
+        wrong[i] = bad
+        assert call(64, 128, wrong) == 1
+    assert call(65, 128, args) == 1          # d above the staged width
+    assert call(64, 96, args) == 1           # a q tile not dividing s
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
+    before = fa.launches
+    monkeypatch.setattr(fa, "plan", lambda *_: dataclasses.replace(
+        pl, threads=512))
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        fa.flash_attention(q, k, v)
+    monkeypatch.undo()
+    assert fa.launches == before
+    assert call(64, 128, args) == 0
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, fa.attention_plain(q, k, v),
+                               rtol=RTOL[torch.float32],
+                               atol=RTOL[torch.float32])
 
 
 @pytest.mark.parametrize("bh,l,p,n,chunk", [

@@ -11,6 +11,7 @@ recurrence. The spaces, config ids and cost-model workloads must equal the
 reference's exactly. The CUDA kernels themselves are compared with the
 plain versions on the card by chip_smoke.py and tests/test_torch_cuda.py.
 """
+import dataclasses
 import inspect
 
 import jax.numpy as jnp
@@ -240,6 +241,199 @@ def test_wrappers_keep_the_reference_asserts_and_check_inputs():
         ssd.ssd_scan(*args, chunk=0)
     with pytest.raises(ValueError, match="BH, L"):
         ssd.ssd_scan(x, torch.zeros(2, 95), *args[2:], chunk=32)
+
+
+# ------------------------------------------------- the kernel's launch plan
+# plan(block_q, block_kv, 4096, 128) of every hub tiling: (threads, sub_q,
+# sub_kv); 64-row q tiles take the narrow block
+HUB_PLANS = {64: (128, 64, 32)}
+WIDE_PLAN = (256, 128, 64)
+
+
+def test_attention_plans_are_pinned():
+    """The plan of each of the 50 hub tilings at d 128, of the smoke
+    space's 12 at d 64, and of d 66 and d 1; none is refused."""
+    space = get_kernel("flash_attention").space(FULL[fa])
+    assert space.size == 50
+    for conf in map(space.as_dict, space.valid_configs):
+        pl = fa.plan(conf["block_q"], conf["block_kv"], 4096, 128)
+        assert (pl.threads, pl.sub_q, pl.sub_kv) == \
+            HUB_PLANS.get(conf["block_q"], WIDE_PLAN)
+        assert (pl.bf16, pl.rows, pl.stages, pl.d_max, pl.pitch) == \
+            (False, 4, 3, 128, 132)
+        assert pl.q_sub_tiles(conf["block_q"]) == max(1,
+                                                      conf["block_q"] // 128)
+    smoke = get_kernel("flash_attention").space()
+    assert smoke.size == 12
+    for conf in map(smoke.as_dict, smoke.valid_configs):
+        pl = fa.plan(conf["block_q"], conf["block_kv"], 256, 64)
+        assert (pl.threads, pl.sub_kv, pl.d_max, pl.pitch) \
+            == ((128, 32, 64, 68) if conf["block_q"] == 64
+                else (256, 64, 64, 68))
+    assert fa.plan(64, 64, 256, 66) == fa.Plan(False, 128, 128, 32)
+    assert fa.plan(64, 64, 256, 66).sub_q == 64
+    assert fa.plan(96, 48, 192, 1, torch.bfloat16) == fa.Plan(
+        True, 64, 256, 64)
+    assert fa.plan(128, 128, 512, 129) is None
+    assert fa.plan(128, 128, 512, 0) is None
+    assert fa.plan(96, 128, 512, 64) is None
+    assert fa.plan(128, 128, 512, 64, torch.float64) is None
+    assert not fa.fits({"block_q": 96, "block_kv": 128}, {"seq": 512})
+    assert fa.INSTANTIATIONS == tuple(
+        (b, dm, *sh) for b in (0, 1) for dm in (64, 128)
+        for sh in (fa.WIDE, fa.NARROW))
+
+
+def _attn_mirror(q, k, v, block_q, block_kv, causal, window, pl, *,
+                 skip_alpha_at=None, short=0):
+    """csrc/flash_attention.cu's walk in numpy, on float32: blocks heaviest
+    first, each walking its q tile in sub-tiles of ``pl.sub_q`` rows (q
+    staged with rows clamped to the sequence and zero columns past d),
+    the visited kv tiles in sub-tiles of ``pl.sub_kv``; per sub-tile the
+    scores of row group g's rows r·groups + g against lane t's columns
+    c·8 + t, masks only where the sub-tile needs them (-inf past the
+    tile), each lane's partial max and in-order sum over its columns,
+    then the group's over its 8 lanes (a butterfly of xor 1, 2, 4), the
+    alpha rescale, p handed to the group's slice and read by its pair of
+    groups row by kv row, and acc / max(l, 1e-30) for the tile's rows.
+    ``skip_alpha_at`` (drop the alpha rescale on that sub-tile of every
+    walk) and ``short`` (visit that many kv tiles fewer) mutate it to show
+    the test can fail."""
+    f32 = np.float32
+    bh, s, d = q.shape
+    group = bh // k.shape[0]
+    ng, nr, sq, skv, dm = pl.groups, pl.rows, pl.sub_q, pl.sub_kv, pl.d_max
+    ncol = skv // 8
+    scale = f32(1.0 / d ** 0.5)
+    rows = np.arange(nr)[:, None] * ng + np.arange(ng)[None, :]   # (R, G)
+    lanes = np.arange(8)
+    cols = np.arange(ncol)[None, :] * 8 + lanes[:, None]          # (8, C)
+    # a pair's row a: row a % R of its group 2·pair + a // R
+    pair_rows = ((np.arange(2 * nr) % nr)[None, :] * ng
+                 + 2 * np.arange(ng // 2)[:, None]
+                 + (np.arange(2 * nr) // nr)[None, :])            # (G/2, 2R)
+
+    def by_pair(x):  # (R, G) -> (G/2, 2R)
+        return x.T.reshape(ng // 2, 2, nr).reshape(ng // 2, 2 * nr)
+
+    def staged(x, first, n):
+        out = np.zeros((n, dm), f32)
+        out[:, :d] = x[np.minimum(first + np.arange(n), s - 1)]
+        return out
+
+    out = np.full(q.shape, np.nan, f32)
+    n_q, n_kv = s // block_q, s // block_kv
+    subs = -(-block_kv // skv)
+    for b in range(bh * n_q):
+        qi, h = n_q - 1 - b // bh, b % bh
+        q_begin = qi * block_q
+        end = min(n_kv, (q_begin + block_q - 1) // block_kv + 1) \
+            if causal else n_kv
+        begin = 0
+        if window:
+            lo = q_begin - window + 1
+            begin = lo // block_kv if lo > 0 else 0
+        n_sub = (end - short - begin) * subs
+        for qs0 in range(0, block_q, sq):
+            q0 = q_begin + qs0
+            qt = staged(q[h], q0, sq)
+            m = np.full((nr, ng), -1e30, f32)
+            l = np.zeros((nr, ng), f32)
+            acc = np.zeros((ng // 2, 2 * nr, dm), f32)
+            for u in range(n_sub):
+                ks0 = u % subs * skv
+                kv0 = (begin + u // subs) * block_kv + ks0
+                n_cols = min(skv, block_kv - ks0)
+                kt = staged(k[h // group], kv0, skv)
+                vt = staged(v[h // group], kv0, skv)
+                x = (qt @ kt.T)[rows[:, :, None, None],
+                                cols[None, None]] * scale          # (R,G,8,C)
+                if (n_cols < skv or (causal and kv0 + skv - 1 > q0) or
+                        (window and q0 + sq - 1 - kv0 >= window)):
+                    q_pos = q0 + rows[:, :, None, None]
+                    kv_pos = kv0 + cols[None, None]
+                    masked = np.zeros(x.shape, bool)
+                    if causal:
+                        masked |= q_pos < kv_pos
+                    if window:
+                        masked |= q_pos - kv_pos >= window
+                    x = np.where(masked, f32(-1e30), x)
+                    x = np.where(cols[None, None] >= n_cols, f32(-np.inf), x)
+                m_new = np.maximum(m, x.max(axis=3).max(axis=2))
+                alpha = np.exp(m - m_new)
+                if u == skip_alpha_at:
+                    alpha = np.ones_like(alpha)
+                p = np.exp(x - m_new[:, :, None, None])
+                part = p[..., 0]
+                for c in range(1, ncol):
+                    part = part + p[..., c]
+                for xor in (1, 2, 4):
+                    part = part + part[:, :, lanes ^ xor]
+                l = l * alpha + part[:, :, 0]
+                m = m_new
+                # the slices: slice g holds row r's p of kv row j at [g, j, r]
+                slices = np.empty((ng, skv, nr), f32)
+                slices[:, cols.ravel(), :] = p.transpose(1, 2, 3, 0).reshape(
+                    ng, 8 * ncol, nr)
+                pair_p = slices.reshape(ng // 2, 2, skv, nr).transpose(
+                    0, 2, 1, 3).reshape(ng // 2, skv, 2 * nr)
+                acc = acc * by_pair(alpha)[:, :, None]
+                for j in range(skv):
+                    acc = acc + pair_p[:, j, :, None] * vt[j][None, None, :]
+            o = acc / np.maximum(by_pair(l), f32(1e-30))[:, :, None]
+            keep = qs0 + pair_rows < block_q
+            out[h, q0 + pair_rows[keep]] = o[keep][:, :d]
+    return out
+
+
+# (q heads, kv heads, tokens, d, block_q, block_kv, causal, window, shape)
+MIRROR_CASES = [
+    (4, 2, 256, 64, 128, 128, True, None, None),
+    (4, 2, 256, 64, 64, 256, True, 64, None),        # narrow block, window
+    (6, 2, 256, 64, 256, 128, False, None, None),    # two q sub-tiles
+    (2, 1, 192, 66, 96, 48, True, None, None),       # part sub-tiles, d 66
+    (4, 2, 512, 64, 128, 128, True, 100, None),      # window across sub-tiles
+    (2, 1, 128, 1, 64, 64, True, None, None),        # d 1
+    (2, 1, 256, 128, 64, 128, False, 100, None),
+    (4, 2, 256, 64, 128, 128, True, None, "NARROW"),  # two 64-row sub-tiles
+]
+
+
+@pytest.mark.parametrize("bh,bh_kv,s,d,bq,bkv,causal,window,shape",
+                         MIRROR_CASES)
+def test_attention_mirror_of_the_kernel_walk_equals_plain_and_pallas(
+        bh, bh_kv, s, d, bq, bkv, causal, window, shape):
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (bh, s, d))
+    k, v = _randn(rng, (bh_kv, s, d)), _randn(rng, (bh_kv, s, d))
+    pl = fa.plan(bq, bkv, s, d)
+    if shape:  # the walk of a block shape plan does not pick for this tile
+        threads, sub_kv = getattr(fa, shape)
+        pl = dataclasses.replace(pl, threads=threads, sub_kv=sub_kv)
+    out = _attn_mirror(q, k, v, bq, bkv, causal, window, pl)
+    plain = fa.attention_plain(*map(torch.from_numpy, (q, k, v)),
+                               causal=causal, window=window).numpy()
+    np.testing.assert_allclose(out, plain, rtol=RTOL["float32"],
+                               atol=RTOL["float32"])
+    ref = np.asarray(ref_fa.flash_attention(
+        *map(jnp.asarray, (q, k, v)), block_q=bq, block_kv=bkv,
+        causal=causal, window=window, interpret=True))
+    np.testing.assert_allclose(out, ref, rtol=RTOL["float32"],
+                               atol=RTOL["float32"])
+
+
+@pytest.mark.parametrize("mutation", [{"skip_alpha_at": 1}, {"short": 1}])
+def test_attention_mirror_fails_when_mutated(mutation):
+    """The mirror test can fail: the alpha rescale left out on one
+    sub-tile, or the visited kv tiles' bound one tile short."""
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (4, 256, 64))
+    k, v = _randn(rng, (2, 256, 64)), _randn(rng, (2, 256, 64))
+    pl = fa.plan(128, 128, 256, 64)
+    plain = fa.attention_plain(*map(torch.from_numpy, (q, k, v))).numpy()
+    out = _attn_mirror(q, k, v, 128, 128, True, None, pl, **mutation)
+    assert not np.allclose(out, plain, rtol=RTOL["float32"],
+                           atol=RTOL["float32"])
 
 
 def test_make_live_without_cuda_raises_unless_cpu():
