@@ -15,8 +15,9 @@ Phases (any failure ends the script with a non-zero exit):
      (``UTMALDG``) instructions, and ptxas' registers and spills of each
      (G, T) instantiation of the dedispersion kernel, each (filter
      width, R) instantiation of the convolution kernel, each R
-     instantiation of the hotspot kernel and each (bf16, d_max, threads,
-     sub_kv) instantiation of the flash-attention kernel (a spill fails);
+     instantiation of the hotspot kernel, each (bf16, d_max, threads,
+     sub_kv) instantiation of the flash-attention kernel and each of the
+     SSD's three kernels (a spill fails);
   3. each kernel against its plain PyTorch version on the card: the GEMM at
      tests/test_kernels.py's shapes in float32 and bf16 and at the hub size
      4096^3 bf16 at six tilings (the hub's, an irregular one, and four
@@ -41,14 +42,21 @@ Phases (any failure ends the script with a non-zero exit):
      (GQA group 2; causal, non-causal, window 64; float32 and bf16, RTOL)
      and at starcoder2-7b's width (36 q heads over 4 kv heads, 4096
      tokens, d 128, float32, causal) at (128,128), (64,128), (256,512)
-     and (1024,2048), each with its launch plan printed and timed;
-     the SSD scan at its test shapes (chunks 32, 64, 128) and at
-     mamba2-130m's width (24 heads x 8 sequences of 4096, P 64, N 128) at
-     chunks 128 and 512, within 3e-3; the budget scan over 1024 runs of
-     full-space permutations of the GEMM's 10,140 configs with budgets
-     that run out mid-row (bit-identical); times by CUDA events (median of
-     10) beside each kernel's bound and, where one PyTorch call computes
-     the same function, that call's time;
+     and (1024,2048), each with its launch plan printed and timed; the
+     d_max 256 instantiations at d 256 (float32 and bf16, causal, window
+     64, GQA 3) and at gemma3-1b's width (4 q heads over 1 kv head, 4096
+     tokens, d 256, causal, and with the window 512 of its local layers),
+     timed; the SSD scan at its test shapes (chunks 32, 64, 128), at a
+     state of 256 and P 80 (chunks 64, 512) and at mamba2-130m's width (24
+     heads x 8 sequences of 4096, P 64, N 128) at chunks 128, 64 and 512,
+     within 3e-3, each timed whole and pass by pass (chunk states, state
+     pass, chunk outputs) beside the operations bound and the chunked
+     algorithm's floor; the budget scan over 1024 runs of full-space
+     permutations of the GEMM's 10,140 configs with budgets that run out
+     mid-row (bit-identical), and timed at R = 1 on the segment lengths
+     phase 6 sends; times by CUDA events (median of 10) beside each
+     kernel's bound and, where one PyTorch call computes the same
+     function, that call's time;
   4. the main path, part one: a live random-search recording of each hub
      kernel at its hub size (GEMM 4096^3 bf16, convolution 4096^2 with a
      17x17 filter, hotspot 4096^2, dedispersion 256 channels x 16384
@@ -162,7 +170,15 @@ RECORD_SECONDS = {"gemm": 150.0, "convolution": 60.0, "hotspot": 60.0,
 # (block_q, block_kv) at full width: the JSON row's tiling, the narrow
 # block's, a middle one and the largest; and chunk: a small one, the largest
 ATTN_TILINGS = [(128, 128), (64, 128), (256, 512), (1024, 2048)]
-SSD_CHUNKS = (128, 512)
+# gemma3-1b's attention (src/repro/configs/gemma3_1b.py: 4 q heads over 1
+# kv head, d_head 256, local layers' window 512) on one 4096-token sequence
+ATTN_WIDE_HEADS = {"bh": 4, "bh_kv": 1, "seq": 4096, "d": 256}
+ATTN_WIDE_WINDOWS = (None, 512)
+# chunk: the JSON row's, the recording's best (PR 20), the largest
+SSD_CHUNKS = (128, 64, 512)
+# the GA's populations of the Table III grid (10, 20, 30), padded as the
+# replay engine pads a batch: the segments phase 6 sends at R = 1
+SCAN_R1_LENGTHS = (16, 32)
 SSD_TOL = 3e-3               # tests/test_kernels.py
 STRATEGIES = ("random_search", "genetic_algorithm", "simulated_annealing",
               "pso")
@@ -215,23 +231,44 @@ def spread_ms(fn, reps: int = 7, warmup: int = 1) -> tuple:
             statistics.median(host))
 
 
+def kernel_device_ms(fn, kernel: str, reps: int = 50):
+    """Mean device time in ms of the CUDA kernel whose name holds
+    ``kernel`` over ``reps`` calls of ``fn``, from ``torch.profiler``'s
+    CUDA activity; None where the trace holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        if kernel in evt.key and evt.count:
+            return evt.device_time_total / evt.count / 1e3
+    return None
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
 # ----------------------------------------------------------------- phase 2
 def check_instantiations(what: str, log: str, pattern: str, want: set,
-                         label: str) -> None:
+                         label) -> None:
     """Print the registers and spills of each instantiation of a templated
     kernel from ptxas' ``-v`` report in ``log`` (``pattern`` matches its
-    mangled name and captures the template arguments); fail on a spill or
-    on instantiations other than ``want``."""
+    mangled name and captures the template arguments, or the kernel's name
+    and its arguments; a group that did not take part is dropped; ``label``
+    formats them, a format string or a function); fail on a spill or on
+    instantiations other than ``want``."""
     rows, current = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             kern = re.search(pattern, entry.group(1))
-            current = tuple(map(int, kern.groups())) if kern else None
+            current = tuple(int(g) if g.isdigit() else g
+                            for g in kern.groups()
+                            if g is not None) if kern else None
         elif current is not None:
             for key, pat in (("stores", r"(\d+) bytes spill stores"),
                              ("loads", r"(\d+) bytes spill loads"),
@@ -239,8 +276,9 @@ def check_instantiations(what: str, log: str, pattern: str, want: set,
                 found = re.search(pat, line)
                 if found:
                     rows.setdefault(current, {})[key] = int(found.group(1))
-    for args, row in sorted(rows.items()):
-        print(f"  {what} {label.format(*args)}: {row.get('registers')} "
+    for args, row in sorted(rows.items(), key=str):
+        name = label(*args) if callable(label) else label.format(*args)
+        print(f"  {what} {name}: {row.get('registers')} "
               f"registers, spill stores {row.get('stores')} B, loads "
               f"{row.get('loads')} B")
     if set(rows) != want:
@@ -287,6 +325,16 @@ def check_attention_build(log: str) -> None:
         "flash_attention", log,
         r"attn_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
         set(fa.INSTANTIATIONS), "bf16 {} D {} threads {} sub_kv {}")
+
+
+def check_ssd_build(log: str) -> None:
+    """Registers and spills of the SSD's three kernels (the state pass in
+    its float and float4 forms); a spill fails."""
+    check_instantiations(
+        "ssd", log, r"(ssd_chunk_states|ssd_state_pass|ssd_chunk_outputs)"
+        r"(?:ILi(\d+)E)?", {("ssd_chunk_states",), ("ssd_state_pass", 1),
+                            ("ssd_state_pass", 4), ("ssd_chunk_outputs",)},
+        lambda name, *v: name + "".join(f"<{x}>" for x in v))
 
 
 def check_sass(lib: pathlib.Path) -> None:
@@ -666,6 +714,7 @@ def check_attention(device: str) -> dict:
     print(f"  flash_attention plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
           f"ms, bound {max(ops_ms, bytes_ms):.4f} ms (operations "
           f"{ops_ms:.4f}, bytes {bytes_ms:.4f})")
+    check_attention_wide_heads(device, rng)
     return kernel_row("flash_attention", "src/repro_torch/kernels/csrc/"
                       "flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:39", err,
@@ -673,22 +722,81 @@ def check_attention(device: str) -> dict:
                       library_ms)
 
 
+def ssd_pass_ms(args, chunk: int, reps: int = 10) -> list:
+    """Median time of each of the SSD's three kernels over ``reps`` calls,
+    by CUDA events recorded before the first kernel and after each."""
+    from repro_torch.kernels import ssd
+    ssd.ssd_scan(*args, chunk=chunk)
+    times = []
+    for _ in range(reps):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ssd.ssd_scan(*args, chunk=chunk, marks=marks)
+        marks[-1].synchronize()
+        times.append([marks[i].elapsed_time(marks[i + 1]) for i in range(3)])
+    return [statistics.median(t[i] for t in times) for i in range(3)]
+
+
+def check_attention_wide_heads(device: str, rng) -> None:
+    """The d_max 256 instantiations against ``attention_plain``: at a small
+    size in float32 and bf16 (causal, window, GQA), then at gemma3-1b's
+    width (ATTN_WIDE_HEADS), causal and with its local layers' window, each
+    with its plan printed and timed beside its operations bound."""
+    from repro_torch.kernels import flash_attention as fa
+    for dtype in (torch.float32, torch.bfloat16):
+        q = randn(rng, (6, 512, 256), device).to(dtype)
+        k, v = (randn(rng, (2, 512, 256), device).to(dtype)
+                for _ in range(2))
+        for causal, window in ((True, None), (False, None), (True, 64)):
+            agree(f"flash_attention 6x512x256 over 2 kv heads "
+                  f"{str(dtype)[6:]} causal {causal} window {window} tiles "
+                  f"(128,128)",
+                  fa.flash_attention(q, k, v, causal=causal,
+                                     window=window).float(),
+                  fa.attention_plain(q, k, v, causal=causal,
+                                     window=window).float(), RTOL[dtype])
+    p = ATTN_WIDE_HEADS
+    bh, bh_kv, s, d = p["bh"], p["bh_kv"], p["seq"], p["d"]
+    q = randn(rng, (bh, s, d), device)
+    k, v = randn(rng, (bh_kv, s, d), device), randn(rng, (bh_kv, s, d), device)
+    pl = fa.plan(128, 128, s, d)
+    print(f"  plan (128,128) d {d}: {pl.instantiation}, {pl.groups} row "
+          f"groups, q sub-tile {pl.sub_q} ({pl.q_sub_tiles(128)} a tile), "
+          f"kv sub-tile {pl.sub_kv}, {pl.col_blocks} blocks a q tile, "
+          f"{bh * (s // 128) * pl.col_blocks} blocks")
+    for window in ATTN_WIDE_WINDOWS:
+        agree(f"flash_attention {bh}x{s}x{d} over {bh_kv} kv head causal "
+              f"window {window} tiles (128,128)",
+              fa.flash_attention(q, k, v, window=window),
+              fa.attention_plain(q, k, v, window=window),
+              RTOL[torch.float32])
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, window=window))
+        pairs = sum(min(i + 1, window or s) for i in range(s))
+        flops = 4.0 * bh * pairs * d
+        print(f"  flash_attention {bh}x{s}x{d} causal window {window} "
+              f"(128,128): kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} "
+              f"TFLOP/s of the useful {flops / 1e9:.2f} GFLOP), operations "
+              f"bound {flops / PEAK_F32_FLOPS * 1e3:.4f} ms")
+
+
 def check_ssd(device: str) -> dict:
-    """SSD kernel vs ``ssd_plain`` at tests/test_kernels.py's shapes and
-    distributions, then at mamba2-130m's width on the recording's inputs
-    at chunks 128 and 512; times at both, the JSON row at chunk 128."""
+    """SSD kernels vs ``ssd_plain`` at tests/test_kernels.py's shapes and
+    distributions and at a state of 256, then at mamba2-130m's width on the
+    recording's inputs at every chunk of SSD_CHUNKS; each chunk timed
+    whole and pass by pass, beside the operations bound and the chunked
+    algorithm's floor; the JSON row at the first chunk."""
     from repro_torch.kernels import ssd
     rng = np.random.default_rng(7)
     softplus = torch.nn.functional.softplus
-    bh, l, pp, n = 3, 256, 16, 8
-    x, b, c = (randn(rng, s, device) for s in ((bh, l, pp), (bh, l, n),
-                                               (bh, l, n)))
-    dt = softplus(randn(rng, (bh, l), device)) * 0.1
-    a = -softplus(randn(rng, (bh,), device))
-    for chunk in (32, 64, 128):
-        agree(f"ssd {bh}x{l} P {pp} N {n} chunk {chunk}",
-              ssd.ssd_scan(x, dt, a, b, c, chunk=chunk),
-              ssd.ssd_plain(x, dt, a, b, c, chunk=chunk), SSD_TOL)
+    for bh, l, pp, n, chunks in ((3, 256, 16, 8, (32, 64, 128)),
+                                 (2, 512, 80, 256, (64, 512))):
+        x, b, c = (randn(rng, s, device) for s in ((bh, l, pp), (bh, l, n),
+                                                   (bh, l, n)))
+        dt = softplus(randn(rng, (bh, l), device)) * 0.1
+        a = -softplus(randn(rng, (bh,), device))
+        for chunk in chunks:
+            agree(f"ssd {bh}x{l} P {pp} N {n} chunk {chunk}",
+                  ssd.ssd_scan(x, dt, a, b, c, chunk=chunk),
+                  ssd.ssd_plain(x, dt, a, b, c, chunk=chunk), SSD_TOL)
     p = HUB_PROBLEMS["ssd"]
     bh, l, pp, n = p["bh"], p["seq"], p["p"], p["n"]
     args = ssd.live_inputs(p, device)
@@ -701,13 +809,20 @@ def check_ssd(device: str) -> dict:
                     ssd.ssd_scan(*args, chunk=chunk),
                     ssd.ssd_plain(*args, chunk=chunk), SSD_TOL)
         ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk))
+        passes = ssd_pass_ms(args, chunk)
         plain = spread_ms(lambda: ssd.ssd_plain(*args, chunk=chunk))
-        print(f"  ssd {bh}x{l} chunk {chunk}: kernel {ms:.4f} ms "
+        work = ssd.chunked_flops(**p, chunk=chunk)
+        floor_ms = work / PEAK_F32_FLOPS * 1e3
+        print(f"  ssd {bh}x{l} chunk {chunk}: kernels {ms:.4f} ms "
               f"({flops / ms / 1e9:.2f} TFLOP/s of the needed "
-              f"{flops / 1e9:.2f} GFLOP), plain median {plain[0]:.4f} ms "
-              f"(min {plain[1]:.4f}, max {plain[2]:.4f}, host enqueue "
-              f"median {plain[3]:.4f}), bound {max(ops_ms, bytes_ms):.4f} "
-              f"ms (operations {ops_ms:.4f}, bytes {bytes_ms:.4f})")
+              f"{flops / 1e9:.2f} GFLOP, {work / ms / 1e9:.2f} of the "
+              f"chunked {work / 1e9:.2f}); passes: chunk states "
+              f"{passes[0]:.4f}, state pass {passes[1]:.4f}, chunk outputs "
+              f"{passes[2]:.4f} ms; plain median {plain[0]:.4f} ms (min "
+              f"{plain[1]:.4f}, max {plain[2]:.4f}, host enqueue median "
+              f"{plain[3]:.4f}); bound {max(ops_ms, bytes_ms):.4f} ms "
+              f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f}), algorithm "
+              f"floor {floor_ms:.4f} ms")
         if chunk == SSD_CHUNKS[0]:
             row = kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
                              "src/repro/kernels/ssd.py:39", err, ms,
@@ -785,6 +900,24 @@ def check_scan(device: str, runs: int, seed: int = 1) -> dict:
     print(f"  budget_scan {runs}x{n}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
           f"({moved / 1e6:.1f} MB moved)")
+    for length in SCAN_R1_LENGTHS:
+        one = (args[0][:1, :length].contiguous(), args[1][:1, :length],
+               *args[2:6], *(t[:1] for t in args[6:]))
+        one_ms = spread_ms(lambda: rp.budget_scan(*one), reps=20)
+        kernel_ms = kernel_device_ms(lambda: rp.budget_scan(*one),
+                                     "budget_scan_kernel")
+        got1 = rp.budget_scan(*one)
+        moved1 = nbytes(*(a for a in one if isinstance(a, torch.Tensor)),
+                        *got1)
+        bound1 = max(moved1 / PEAK_BYTES,
+                     int(got1[0].sum().item()) / PEAK_F64_FLOPS) * 1e3
+        print(f"  budget_scan R = 1 x {length} (phase 6's GA batches): "
+              f"call {one_ms[0]:.4f} ms by events (min {one_ms[1]:.4f}, "
+              f"host enqueue median {one_ms[3]:.4f}), kernel "
+              + ("not measured" if kernel_ms is None
+                 else f"{kernel_ms:.4f} ms")
+              + f" on the device (torch.profiler), bound {bound1:.6f} ms "
+              f"({moved1 / 1e6:.3f} MB moved)")
     return kernel_row("budget_scan", "src/repro_torch/core/engine_torch/"
                       "csrc/budget_scan.cu",
                       "src/repro/core/engine_jax/replay.py:66", err, ms,
@@ -1009,6 +1142,7 @@ def main() -> int:
     check_conv_build(cuda.build_log("convolution"))
     check_hotspot_build(cuda.build_log("hotspot"))
     check_attention_build(cuda.build_log("flash_attention"))
+    check_ssd_build(cuda.build_log("ssd"))
 
     print("[3] kernels against their plain versions")
     kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),

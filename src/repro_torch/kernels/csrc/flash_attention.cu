@@ -70,8 +70,16 @@
 //
 // The wrapper's `plan` (flash_attention.py) picks the instantiation: NT
 // threads (NT / 8 row groups, a q sub-tile of NT / 2 rows) with SKV (256
-// threads with 64, one block an SM; 128 threads with 32, two), and D = 64
-// or 128. The C entry launches only these, and refuses any other plan.
+// threads with 64, one block an SM; 128 threads with 32, two), and D = 64,
+// 128 or 256. The C entry launches only these, and refuses any other plan.
+//
+// Head dims up to 256 (gemma3-1b's d_head). At D = 256 the WIDE block's q
+// sub-tile and ring would take over 227 KB, so D = 256 takes the NARROW
+// block at every block_q (174,848 bytes, one block an SM). Its accumulator
+// would double to 128 registers a lane and spill, so two blocks share each
+// (head, q tile): each computes the full-d scores and softmax and owns one
+// 128-column half of v and the output (twice the score work at d 256; a
+// faster block is later work).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,7 +95,7 @@ namespace {
 constexpr int kLanes = 8;                  // lanes of a row group
 constexpr int kRows = 4;                   // q rows a row group owns
 constexpr int kSlots = 3;                  // ring slots (a k or a v sub-tile)
-constexpr int kMaxD = 128;                 // head dims an instantiation holds
+constexpr int kMaxD = 256;                 // head dims an instantiation holds
 constexpr int kMaxSmem = 232448;           // dynamic shared memory of a block
 constexpr float kNegInf = -1e30f;          // NEG_INF of the reference
 static_assert(kRows == 4, "a row group's p for one kv row is one float4");
@@ -96,6 +104,12 @@ static_assert(kRows == 4, "a row group's p for one kv row is one float4");
 // slices of a warp's groups start in distinct bank quads.
 __host__ __device__ constexpr int p_slice(int sub_kv) {
   return sub_kv * kRows + 4;
+}
+
+// Blocks that share one (head, q tile), each owning D / col_blocks of the
+// output's columns: two at D = 256, so the accumulator stays 8 x 16 a lane.
+__host__ __device__ constexpr int col_blocks(int d_max) {
+  return d_max > 128 ? 2 : 1;
 }
 
 // Shared memory of one instantiation, in floats: the q sub-tile, the ring
@@ -191,7 +205,8 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
   constexpr int C = SKV / kLanes;     // score columns a lane holds
   constexpr int PS = p_slice(SKV);    // floats of a group's p slice
   constexpr int PR = 2 * kRows;       // p v: rows a lane holds (a pair's)
-  constexpr int VC = D / 64;          // p v: float4 column chunks a lane
+  constexpr int NH = col_blocks(D);   // blocks sharing a q tile
+  constexpr int VC = D / NH / 64;     // p v: float4 column chunks a lane
   const T* q = static_cast<const T*>(q_in);
   const T* k = static_cast<const T*>(k_in);
   const T* v = static_cast<const T*>(v_in);
@@ -210,8 +225,10 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
   const int pair_grp = grp - odd;     // the pair's first group
 
   const int n_q = s / block_q;
-  const int qi = n_q - 1 - static_cast<int>(blockIdx.x) / bh;
-  const int h = static_cast<int>(blockIdx.x) % bh;
+  const int blk = static_cast<int>(blockIdx.x) / NH;
+  const int qi = n_q - 1 - blk / bh;
+  const int h = blk % bh;
+  const int col0 = static_cast<int>(blockIdx.x) % NH * (D / NH);  // of v
   const T* qh = q + static_cast<size_t>(h) * s * d;
   const T* kh = k + static_cast<size_t>(h / group) * s * d;
   const T* vh = v + static_cast<size_t>(h / group) * s * d;
@@ -269,7 +286,7 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
     // scores and softmax state: the group's rows r * NG + grp
     float m[kRows], l[kRows], alpha[kRows];
     // p v: the pair's rows (a < 4 of its first group, a >= 4 of its
-    // second), columns c * 64 + 4 pl + e
+    // second), columns col0 + c * 64 + 4 pl + e
     float acc[PR][4 * VC];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
@@ -386,7 +403,7 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
 #pragma unroll
         for (int c = 0; c < VC; ++c) {
           const float4 vv = *reinterpret_cast<const float4*>(
-              vs + j * P + c * 64 + 4 * pl);
+              vs + j * P + col0 + c * 64 + 4 * pl);
 #pragma unroll
           for (int a = 0; a < PR; ++a) {
             acc[a][4 * c + 0] = fmaf(pr[a], vv.x, acc[a][4 * c + 0]);
@@ -413,7 +430,7 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
         T* dst = oh + static_cast<size_t>(q0 + row) * d;
 #pragma unroll
         for (int c = 0; c < VC; ++c) {
-          const int col = c * 64 + 4 * pl;
+          const int col = col0 + c * 64 + 4 * pl;
           const float o0 = acc[a][4 * c + 0] / denom;
           const float o1 = acc[a][4 * c + 1] / denom;
           const float o2 = acc[a][4 * c + 2] / denom;
@@ -456,7 +473,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   };
   const int vec = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) &&
                   aligned(out);
-  const unsigned grid = static_cast<unsigned>(bh) * (s / block_q);
+  const unsigned grid =
+      static_cast<unsigned>(bh) * (s / block_q) * col_blocks(D);
   attn_kernel<kBf16, D, NT, SKV><<<grid, NT, kSmem, stream>>>(
       q, k, v, out, bh, s, d, group, block_q, block_kv, causal, window, scale,
       vec);
@@ -483,7 +501,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
                           int sub_kv, void* stream) {
   if (bh < 1 || s < 1 || d < 1 || d > d_max || group < 1 || bh % group ||
       block_q < 1 || block_kv < 1 || s % block_q || s % block_kv ||
-      static_cast<long long>(bh) * (s / block_q) > INT_MAX ||
+      static_cast<long long>(bh) * (s / block_q) * 2 > INT_MAX ||
       (bf16 != 0 && bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -495,6 +513,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
                 : launch<0, D, NT, SKV>(q, k, v, out, bh, s, d, group,       \
                                         block_q, block_kv, causal, window,   \
                                         scale, st);
+  REPRO_ATTN_CASE(256, 128, 32)
   REPRO_ATTN_CASE(128, 256, 64) REPRO_ATTN_CASE(128, 128, 32)
   REPRO_ATTN_CASE(64, 256, 64) REPRO_ATTN_CASE(64, 128, 32)
 #undef REPRO_ATTN_CASE

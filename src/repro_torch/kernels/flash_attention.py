@@ -18,7 +18,7 @@ on the CPU as on the card; ``block_q`` and ``block_kv`` keep their meaning
 (one block a (head, block_q) q tile, the visited kv tiles walked in
 order). ``acc_dtype`` stays cost-model-only, as in the reference's
 ``make_live``. A problem the kernel cannot run (``fits`` is false: a head
-dimension above 128) raises ``ConfigRejected`` before any launch, on the
+dimension above 256) raises ``ConfigRejected`` before any launch, on the
 CPU as on the card.
 """
 from __future__ import annotations
@@ -47,7 +47,7 @@ SMOKE_PROBLEM = {"bh": 4, "bh_kv": 2, "seq": 256, "d": 64}
 # limits of csrc/flash_attention.cu (checked against the library when it
 # loads): the head dimensions its shared-memory staging holds, the q rows a
 # row group owns, the ring's slots (each a k or a v sub-tile)
-MAX_D = 128
+MAX_D = 256
 ROWS = 4
 STAGES = 3
 LANES = 8                # lanes of a row group
@@ -55,9 +55,12 @@ LANES = 8                # lanes of a row group
 # for: a 128-row q sub-tile in one 256-thread block an SM, and a 64-row one
 # in two 128-thread blocks an SM
 WIDE, NARROW = (256, 64), (128, 32)
-# the kernel's instantiations: (bf16, d_max, threads, sub_kv)
-INSTANTIATIONS = tuple((bf16, d_max, *shape) for bf16 in (0, 1)
-                       for d_max in (64, MAX_D) for shape in (WIDE, NARROW))
+# the kernel's instantiations: (bf16, d_max, threads, sub_kv); d_max 256
+# only in the narrow block (the wide one's staging exceeds a block's
+# shared memory), two blocks sharing each q tile's output columns
+INSTANTIATIONS = tuple(
+    (bf16, d_max, *shape) for bf16 in (0, 1) for d_max in (64, 128, MAX_D)
+    for shape in ((WIDE, NARROW) if d_max <= 128 else (NARROW,)))
 
 # kernel launches by ``flash_attention`` (plain-version calls on the CPU do
 # not count)
@@ -76,7 +79,9 @@ class Plan:
     for the accumulator. The block stages the q sub-tile once and k and v
     sub-tiles of ``sub_kv`` rows through a ring of ``stages`` slots (k of
     a sub-tile, then its v), all as float32 rows of ``pitch`` =
-    ``d_max`` + 4 floats (head dims up to ``d_max``, the rest zero)."""
+    ``d_max`` + 4 floats (head dims up to ``d_max``, the rest zero). At
+    ``d_max`` 256 two blocks share each q tile, each owning one 128-column
+    half of v and of the output (``col_blocks``)."""
     bf16: bool
     d_max: int
     threads: int
@@ -97,6 +102,12 @@ class Plan:
         return self.d_max + 4
 
     @property
+    def col_blocks(self) -> int:
+        """Blocks that share one (head, q tile), each owning its columns
+        of v and of the output."""
+        return 2 if self.d_max > 128 else 1
+
+    @property
     def instantiation(self) -> str:
         return (f"attn_kernel<{'bf16' if self.bf16 else 'f32'}, D "
                 f"{self.d_max}, {self.threads} threads, sub_kv "
@@ -114,15 +125,17 @@ def plan(block_q: int, block_kv: int, s: int, d: int,
     head dimension ``d``, or None where the kernel cannot run it (a tile
     below 1 or not dividing ``s``, d outside 1..``MAX_D``, a dtype other
     than float32 and bf16). The rule: head dims staged to 64 when d <= 64,
-    else to 128; a q tile of at most 64 rows takes the ``NARROW`` block
-    (64-row q and 32-row kv sub-tiles, two blocks an SM), a larger one the
-    ``WIDE`` block (128-row q and 64-row kv sub-tiles)."""
+    to 128 when d <= 128, else to 256; a q tile of at most 64 rows, or any
+    q tile at d above 128, takes the ``NARROW`` block (64-row q and 32-row
+    kv sub-tiles), a larger one the ``WIDE`` block (128-row q and 64-row kv
+    sub-tiles)."""
     if (dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= MAX_D
             or block_q < 1 or block_kv < 1 or s < 1 or s % block_q
             or s % block_kv):
         return None
-    return Plan(dtype == torch.bfloat16, 64 if d <= 64 else MAX_D,
-                *(NARROW if block_q <= 64 else WIDE))
+    d_max = 64 if d <= 64 else 128 if d <= 128 else MAX_D
+    return Plan(dtype == torch.bfloat16, d_max,
+                *(NARROW if block_q <= 64 or d_max > 128 else WIDE))
 
 
 def fits(config: Mapping, problem: Mapping | None = None) -> bool:

@@ -1,25 +1,25 @@
 """Mamba2 SSD (state-space duality) chunked scan.
 
 Port of ``src/repro/kernels/ssd.py``. The Pallas TPU kernel
-``_ssd_kernel``/``ssd_scan`` becomes the hand-written CUDA kernel
-``csrc/ssd.cu`` (its header says what bounds it on the H100 and how a
-chunk larger than shared memory is walked); ``ssd_scan`` here is its
-wrapper and ``ssd_plain`` the same function in plain PyTorch: the chunked
-algorithm of ``_ssd_kernel`` in torch ops, chunk by chunk with the carried
-(N, P) state, batched over the BH rows. The search space, the problem
-sizes and the cost-model ``workload()`` are the reference's, unchanged, so
-config ids agree across the two packages.
+``_ssd_kernel``/``ssd_scan`` becomes three hand-written CUDA kernels in
+``csrc/ssd.cu``, the chunk-parallel form of the same algebra (its header
+says what bounds it on the H100 and what the design does about it): chunk
+states, a state pass over the chunks, chunk outputs. ``ssd_scan`` here is
+their wrapper and ``ssd_plain`` the same three passes in batched PyTorch.
+The search space, the problem sizes and the cost-model ``workload()`` are
+the reference's, unchanged, so config ids agree across the two packages.
 
-``chunk`` is a runtime argument of one compiled kernel; ``state_block``
+``chunk`` is a runtime argument of the compiled kernels; ``state_block``
 and ``acc_dtype`` stay cost-model-only, as in the reference's
-``make_live``. A problem the kernel cannot run (``fits`` is false: a state
-larger than 128, or a chunk whose staging exceeds shared memory) raises
-``ConfigRejected`` before any launch, on the CPU as on the card.
+``make_live``. A problem the kernels cannot run (``fits`` is false: a
+state larger than ``MAX_N`` = 256) raises ``ConfigRejected`` before any
+launch, on the CPU as on the card. A chunk of any length runs: its cum
+goes through device memory, not shared memory.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import torch
 
@@ -34,85 +34,95 @@ ConfigRejected = cuda.ConfigRejected
 # Recording problem size (CPU interpret-mode live tuning)
 SMOKE_PROBLEM = {"bh": 4, "seq": 256, "p": 32, "n": 32}
 
-# limits of csrc/ssd.cu (checked against the library when it loads)
-MAX_N = 128                # state size the shared-memory staging holds
-FIXED_SMEM_FLOATS = 34048  # staging besides the chunk's cum and dt
-MAX_SMEM = 232448          # dynamic shared memory of a block, bytes
+# limits of csrc/ssd.cu (checked against the library when it loads): the
+# state size whose C sub-tile pass 3 keeps in shared memory, the steps of a
+# pass-3 sub-tile, the columns of x, y and h a block owns
+MAX_N = 256
+SUB_ROWS = 64
+SLICE_P = 64
+PASSES = ("repro_ssd_chunk_states", "repro_ssd_state_pass",
+          "repro_ssd_chunk_outputs")
 
-# kernel launches by ``ssd_scan`` (plain-version calls on the CPU do not
-# count)
+# ``ssd_scan`` calls on the card: each is one launch of each of the three
+# kernels (plain-version calls on the CPU do not count)
 launches = 0
 
 
 # ----------------------------------------------------------------- kernel
 def fits(config: Mapping, problem: Mapping | None = None) -> bool:
     """Whether csrc/ssd.cu can run this chunk for ``problem`` (default: the
-    smoke size): a state of at most ``MAX_N`` and a chunk whose cum and dt
-    fit in shared memory beside the fixed staging. Any chunk up to 12,032
-    steps runs: the block walks it in 64-step sub-tiles."""
+    smoke size): a positive chunk and a state of at most ``MAX_N``."""
     p = {**SMOKE_PROBLEM, **(problem or {})}
-    smem = (FIXED_SMEM_FLOATS + 2 * config["chunk"]) * 4
-    return 1 <= p["n"] <= MAX_N and smem <= MAX_SMEM
+    return config["chunk"] >= 1 and 1 <= p["n"] <= MAX_N
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda.library("ssd")
-    if lib.repro_ssd_scan.argtypes is None:
+    if lib.repro_ssd_chunk_outputs.argtypes is None:
         got = [ctypes.c_int() for _ in range(3)]
         lib.repro_ssd_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         lib.repro_ssd_limits.restype = None
         lib.repro_ssd_limits(*(ctypes.byref(x) for x in got))
-        want = (MAX_N, FIXED_SMEM_FLOATS, MAX_SMEM)
+        want = (MAX_N, SUB_ROWS, SLICE_P)
         if tuple(x.value for x in got) != want:
             raise RuntimeError(f"csrc/ssd.cu limits "
                                f"{tuple(x.value for x in got)} disagree "
                                f"with the wrapper's {want}")
-        lib.repro_ssd_scan.restype = ctypes.c_int
-        lib.repro_ssd_scan.argtypes = ([ctypes.c_void_p] * 6
-                                       + [ctypes.c_int] * 5
-                                       + [ctypes.c_void_p])
+        pointers = {"repro_ssd_chunk_states": 6, "repro_ssd_state_pass": 2,
+                    "repro_ssd_chunk_outputs": 7}
+        for name in PASSES:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * pointers[name]
+                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     return lib
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, *,
               chunk: int = 128) -> torch.Tensor:
-    """The same function in plain PyTorch: ``_ssd_kernel``'s chunked
-    algorithm for all BH rows at once, chunk after chunk with the float32
-    state carried from one to the next (zero at chunk 0)."""
+    """The same function in plain PyTorch, as the kernels' three passes
+    over all BH rows and chunks at once: each chunk's cum and state
+    ``S_c = (B o exp(total_c - cum) dt)^T X``; the one loop, over chunks,
+    ``h_{c+1} = exp(total_c) h_c + S_c`` from zero; then every chunk's
+    intra-chunk term ``((C B^T) o exp(cum_i - cum_j)[j <= i] o dt_j) X``
+    (``torch.where`` keeps the overflowing upper triangle out) and
+    inter-chunk term ``exp(cum) C h_c``."""
     bh, l, p = x.shape
     n = b.shape[-1]
-    xf, dtf, af, bf, cf = (t.float() for t in (x, dt, a, b, c))
+    nc = l // chunk
+    xc, bc, cc = (t.float().reshape(bh, nc, chunk, -1) for t in (x, b, c))
+    dtc = dt.float().reshape(bh, nc, chunk)
+    cum = torch.cumsum(dtc * a.float()[:, None, None], dim=2)   # (BH, C, Q)
+    total = cum[..., -1]                                        # (BH, C)
+    w = torch.exp(total[..., None] - cum) * dtc
+    states = (bc * w[..., None]).transpose(-1, -2) @ xc         # (BH,C,N,P)
+    decay = torch.exp(total)
     h = torch.zeros((bh, n, p), dtype=torch.float32, device=x.device)
+    h_in = []
+    for ci in range(nc):
+        h_in.append(h)
+        h = decay[:, ci, None, None] * h + states[:, ci]
     idx = torch.arange(chunk, device=x.device)
     mask = idx[:, None] >= idx[None, :]
-    ys = []
-    for t0 in range(0, l, chunk):
-        xc, dtc = xf[:, t0:t0 + chunk], dtf[:, t0:t0 + chunk]
-        bc, cc = bf[:, t0:t0 + chunk], cf[:, t0:t0 + chunk]
-        cum = torch.cumsum(dtc * af[:, None], dim=1)           # (BH, Q)
-        li = cum[:, :, None] - cum[:, None, :]
-        decay = torch.where(mask, torch.exp(li), 0.0)
-        cb = cc @ bc.transpose(1, 2)                           # (BH, Q, Q)
-        w = cb * decay * dtc[:, None, :]
-        y_intra = w @ xc
-        y_inter = torch.exp(cum)[:, :, None] * (cc @ h)
-        ys.append(y_intra + y_inter)
-        total = cum[:, -1]
-        suffix = torch.exp(total[:, None] - cum) * dtc          # (BH, Q)
-        bx = (bc * suffix[:, :, None]).transpose(1, 2) @ xc     # (BH, N, P)
-        h = torch.exp(total)[:, None, None] * h + bx
-    return torch.cat(ys, dim=1).to(x.dtype)
+    li = cum[..., :, None] - cum[..., None, :]                  # (BH,C,Q,Q)
+    weights = (cc @ bc.transpose(-1, -2)) * torch.where(
+        mask, torch.exp(li), 0.0) * dtc[..., None, :]
+    y = weights @ xc + torch.exp(cum)[..., None] * (cc @ torch.stack(h_in, 1))
+    return y.reshape(bh, l, p).to(x.dtype)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, *,
-             chunk: int = 128) -> torch.Tensor:
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+             marks: Sequence | None = None) -> torch.Tensor:
     """SSD scan for a flattened (batch·heads) leading dim, float32, the
     reference's layout: x (BH, L, P); dt (BH, L); a (BH,); b/c (BH, L, N).
-    Returns y like x: the CUDA kernel for tensors on the card,
+    Returns y like x: the three CUDA kernels for tensors on the card (a
+    (BH, L) cum and a (BH, L / chunk, N, P) state scratch allocated here),
     ``ssd_plain`` for tensors on the CPU. Raises ``ConfigRejected`` for a
-    problem ``fits`` refuses, on either device."""
+    problem ``fits`` refuses, on either device. ``marks``, four CUDA
+    events, are recorded before the first kernel and after each (so a
+    caller can time the passes)."""
     global launches
     bh, l, p = x.shape
     n = b.shape[-1]
@@ -141,10 +151,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError("ssd_scan takes contiguous tensors")
     lib = _lib()
     y = torch.empty_like(x)
-    rc = lib.repro_ssd_scan(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                            b.data_ptr(), c.data_ptr(), y.data_ptr(), bh, l,
-                            p, n, chunk, cuda.stream_handle(x.device))
-    cuda.check_launch(lib, rc, "ssd_scan")
+    cum = torch.empty((bh, l), dtype=torch.float32, device=x.device)
+    states = torch.empty((bh, l // chunk, n, p), dtype=torch.float32,
+                         device=x.device)
+    stream = cuda.stream_handle(x.device)
+    shape = (bh, l, p, n, chunk, stream)
+    pointers = ((x, dt, a, b, cum, states), (cum, states),
+                (x, dt, b, c, cum, states, y))
+    if marks:
+        marks[0].record()
+    for i, (name, ptrs) in enumerate(zip(PASSES, pointers)):
+        rc = getattr(lib, name)(*(t.data_ptr() for t in ptrs), *shape)
+        cuda.check_launch(lib, rc, f"ssd_scan ({name})")
+        if marks:
+            marks[i + 1].record()
     launches += 1
     return y
 
@@ -251,3 +271,18 @@ def needed_flops(bh: int = 24 * 8, seq: int = 4096, p: int = 64,
     Q x Q terms (which ``workload``'s cost model counts whole), so neither
     needs less. A bound on the card's time rests on this count."""
     return 4.0 * bh * seq * n * p
+
+
+def chunked_flops(bh: int = 24 * 8, seq: int = 4096, p: int = 64,
+                  n: int = 128, chunk: int = 128) -> float:
+    """Operations of the chunked algorithm as csrc/ssd.cu runs it, an FMA
+    being 2: the state products of passes 1 and 3 (``needed_flops``) and,
+    per chunk, the intra-chunk products C B^T (depth N) and W X (depth P)
+    over the pairs of sub-tiles of min(``SUB_ROWS``, chunk) steps on or
+    below the diagonal. Over the card's rate it gives the algorithm floor
+    beside the operations bound."""
+    rows = min(SUB_ROWS, chunk)
+    subs = -(-chunk // rows)
+    pairs = subs * (subs + 1) // 2
+    intra = bh * (seq // chunk) * pairs * 2.0 * rows * rows * (n + p)
+    return needed_flops(bh, seq, p, n) + intra

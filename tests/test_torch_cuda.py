@@ -480,6 +480,80 @@ def test_ssd_kernel_matches_plain(card, bh, l, p, n, chunk):
                                rtol=3e-3, atol=3e-3)
 
 
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("p", [16, 64, 80])
+@pytest.mark.parametrize("n", [8, 64, 128, 200, 256])
+def test_ssd_passes_match_plain(card, n, p, chunk):
+    """The three kernels against ``ssd_plain`` over states up to 256 (200:
+    a part k-slice), P of one, one full and a part 64-column slice, every
+    chunk of the space, with one chunk and with three."""
+    rng = np.random.default_rng(n * 1000 + p * 10 + chunk)
+    softplus = torch.nn.functional.softplus
+    for l in (chunk, 3 * chunk):
+        x = _randn(rng, (2, l, p), card)
+        dt = softplus(_randn(rng, (2, l), card)) * 0.1
+        a = -softplus(_randn(rng, (2,), card))
+        b, c = _randn(rng, (2, l, n), card), _randn(rng, (2, l, n), card)
+        before = ssd.launches
+        out = ssd.ssd_scan(x, dt, a, b, c, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd.launches == before + 1
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, ssd.ssd_plain(x, dt, a, b, c,
+                                                      chunk=chunk),
+                                   rtol=3e-3, atol=3e-3)
+
+
+def test_ssd_passes_refuse_shapes_outside_their_limits(card):
+    """Each pass's C entry returns cudaErrorInvalidValue, launching
+    nothing, for a state above 256 or a chunk that does not divide L; the
+    wrapper refuses N 257 before any launch."""
+    lib = ssd._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = torch.zeros(1 << 16, device=card)
+    ptr = buf.data_ptr()
+    for l, n, chunk in ((64, 257, 32), (64, 8, 48), (64, 8, 0)):
+        shape = (2, l, 16, n, chunk, stream)
+        assert lib.repro_ssd_chunk_states(*[ptr] * 6, *shape) == 1
+        assert lib.repro_ssd_state_pass(*[ptr] * 2, *shape) == 1
+        assert lib.repro_ssd_chunk_outputs(*[ptr] * 7, *shape) == 1
+    torch.cuda.synchronize()
+    assert bool((buf == 0).all())
+    before = ssd.launches
+    z = torch.zeros(1, 64, 257, device=card)
+    with pytest.raises(ssd.ConfigRejected):
+        ssd.ssd_scan(torch.zeros(1, 64, 4, device=card),
+                     torch.zeros(1, 64, device=card),
+                     torch.zeros(1, device=card), z, z, chunk=32)
+    assert ssd.launches == before
+
+
+@pytest.mark.parametrize("group,tiling,causal,window", [
+    (2, (128, 128), True, None), (3, (64, 256), True, 64),
+    (1, (256, 128), False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [129, 192, 256])
+def test_flash_attention_wide_heads_match_plain(card, d, dtype, group,
+                                                tiling, causal, window):
+    """Head dims above 128 (gemma3-1b's 256): the d_max 256 instantiation,
+    two blocks a q tile, each owning one half of the output's columns."""
+    rng = np.random.default_rng(d)
+    q = _randn(rng, (2 * group, 512, d), card).to(dtype)
+    k, v = (_randn(rng, (2, 512, d), card).to(dtype) for _ in range(2))
+    pl = fa.plan(*tiling, 512, d, dtype)
+    assert (pl.d_max, pl.threads, pl.col_blocks) == (256, 128, 2)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, block_q=tiling[0], block_kv=tiling[1],
+                             causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(
+        out.float(), fa.attention_plain(q, k, v, causal=causal,
+                                        window=window).float(),
+        rtol=RTOL[dtype], atol=RTOL[dtype])
+
+
 def test_budget_scan_kernel_bit_identical_to_plain(card):
     cache = _cache()
     compiled, cols = cache.space.compiled, cache.columns

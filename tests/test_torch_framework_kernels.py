@@ -88,6 +88,42 @@ def test_flash_attention_matches_pallas_interpret(dtype, causal, window,
     assert fa.launches == before
 
 
+@pytest.mark.parametrize("group,tiling,causal,window", [
+    (2, (128, 128), True, None), (3, (64, 128), True, 64),
+    (1, (128, 64), False, None)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [192, 256])
+def test_flash_attention_wide_heads_match_pallas_interpret(d, dtype, group,
+                                                           tiling, causal,
+                                                           window):
+    """Head dims above 128, up to gemma3-1b's 256: the CPU path computes
+    what the reference's Pallas kernel (interpret mode) and its
+    ``attention_ref`` compute, causal, windowed and with GQA groups of 1
+    to 3; the plan is the d_max 256 instantiation."""
+    rng = np.random.default_rng(d)
+    q = _randn(rng, (2 * group, 256, d))
+    k, v = _randn(rng, (2, 256, d)), _randn(rng, (2, 256, d))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    bq, bkv = tiling
+    jq, jk, jv = (jnp.asarray(x).astype(jdt) for x in (q, k, v))
+    pallas = np.asarray(ref_fa.flash_attention(
+        jq, jk, jv, block_q=bq, block_kv=bkv, causal=causal, window=window,
+        interpret=True), np.float32)
+    oracle = np.asarray(ref_fa.attention_ref(jq, jk, jv, causal=causal,
+                                             window=window), np.float32)
+    pl = fa.plan(bq, bkv, 256, d, tdt)
+    assert (pl.d_max, pl.threads, pl.col_blocks) == (256, 128, 2)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    before = fa.launches
+    out = fa.flash_attention(tq, tk, tv, block_q=bq, block_kv=bkv,
+                             causal=causal, window=window)
+    assert out.dtype == tdt and out.shape == q.shape
+    for ref in (pallas, oracle):
+        np.testing.assert_allclose(out.float().numpy(), ref,
+                                   rtol=RTOL[dtype], atol=RTOL[dtype])
+    assert fa.launches == before
+
+
 def test_attention_plain_equals_reference_oracle():
     """The plain version is the reference's ``attention_ref``, operation for
     operation, up to float32 reassociation in the two products."""
@@ -109,6 +145,34 @@ def test_ssd_matches_pallas_interpret_and_recurrence(chunk):
     a normal."""
     rng = np.random.default_rng(7)
     bh, l, p, n = 3, 256, 16, 8
+    x = _randn(rng, (bh, l, p))
+    dt = _softplus(_randn(rng, (bh, l))) * np.float32(0.1)
+    a = -_softplus(_randn(rng, (bh,)))
+    b, c = _randn(rng, (bh, l, n)), _randn(rng, (bh, l, n))
+    args = tuple(jnp.asarray(t) for t in (x, dt, a, b, c))
+    pallas = np.asarray(ref_ssd.ssd_scan(*args, chunk=chunk, interpret=True))
+    recurrence = np.asarray(ref_ssd.ssd_ref(*args))
+    targs = tuple(torch.from_numpy(t) for t in (x, dt, a, b, c))
+    before = ssd.launches
+    for out in (ssd.ssd_plain(*targs, chunk=chunk),
+                ssd.ssd_scan(*targs, chunk=chunk)):
+        assert out.dtype == torch.float32 and out.shape == x.shape
+        for ref in (pallas, recurrence):
+            np.testing.assert_allclose(out.numpy(), ref, rtol=SSD_TOL,
+                                       atol=SSD_TOL)
+    assert ssd.launches == before
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 128, 256, 512])
+@pytest.mark.parametrize("p,n", [(16, 256), (80, 64)])
+def test_ssd_wide_state_and_head_match_pallas_and_recurrence(p, n, chunk):
+    """A state of 256 (the new limit) and a head dim of 80 (a full and a
+    part 64-column slice on the card), at every chunk of the space up to
+    the whole 512-step sequence: ``ssd_scan`` (its CPU path) and
+    ``ssd_plain`` within 3e-3 of the Pallas kernel and of the
+    step-by-step recurrence."""
+    rng = np.random.default_rng(n + p)
+    bh, l = 2, 512
     x = _randn(rng, (bh, l, p))
     dt = _softplus(_randn(rng, (bh, l))) * np.float32(0.1)
     a = -_softplus(_randn(rng, (bh,)))
@@ -191,6 +255,22 @@ def test_full_width_workloads_give_the_bounds_operation_counts():
                for q in (32, 64, 128, 256, 512))
 
 
+def test_chunked_flops_give_the_algorithm_floors():
+    """The algorithm floor chip_smoke.py prints beside the operations
+    bound: the state products plus the intra-chunk products over 64-step
+    sub-tiles on or below the diagonal (54.8 GFLOP at chunk 128)."""
+    full = FULL[ssd]
+    assert {q: round(ssd.chunked_flops(**full, chunk=q) / 1e9, 1)
+            for q in (32, 64, 128, 256, 512)} == \
+        {32: 35.4, 64: 45.1, 128: 54.8, 256: 74.1, 512: 112.7}
+    q = 128
+    intra = 192 * (4096 // q) * 3 * 2 * 64 * 64 * (128 + 64)
+    assert ssd.chunked_flops(**full, chunk=q) == \
+        ssd.needed_flops(**full) + intra
+    assert ssd.chunked_flops(bh=1, seq=96, p=8, n=8, chunk=96) == \
+        ssd.needed_flops(bh=1, seq=96, p=8, n=8) + 3 * 2 * 64 * 64 * 16
+
+
 # ---------------------------------------------------------------- fitting
 @pytest.mark.parametrize("ours,ref,size", PAIRS)
 def test_every_full_width_tiling_fits(ours, ref, size):
@@ -203,18 +283,24 @@ def test_every_full_width_tiling_fits(ours, ref, size):
 
 
 def test_fits_rejects_what_the_kernels_cannot_run():
-    assert not fa.fits({"block_q": 64, "block_kv": 128}, {"d": 256})
-    assert fa.fits({"block_q": 64, "block_kv": 128}, {"d": 128})
-    assert not ssd.fits({"chunk": 128}, {"n": 256})
-    assert ssd.fits({"chunk": 12032}, {"n": 128})
-    assert not ssd.fits({"chunk": 12288}, {"n": 128})
+    """Head dims and states up to 256 run; 257 is refused before any
+    launch, on the CPU as on the card. A chunk has no length limit: its
+    cum goes through device memory."""
+    assert not fa.fits({"block_q": 64, "block_kv": 128}, {"d": 257})
+    assert fa.fits({"block_q": 64, "block_kv": 128}, {"d": 256})
+    assert fa.fits({"block_q": 1024, "block_kv": 128},
+                   {"d": 129, "seq": 4096})
+    assert not ssd.fits({"chunk": 128}, {"n": 257})
+    assert ssd.fits({"chunk": 128}, {"n": 256})
+    assert ssd.fits({"chunk": 12288}, {"n": 256})
+    assert not ssd.fits({"chunk": 0}, {"n": 128})
     with pytest.raises(fa.ConfigRejected):
-        fa.flash_attention(*(torch.zeros(2, 128, 160) for _ in range(3)),
+        fa.flash_attention(*(torch.zeros(2, 128, 257) for _ in range(3)),
                            block_q=64, block_kv=128)
     with pytest.raises(ssd.ConfigRejected):
         ssd.ssd_scan(torch.zeros(1, 64, 4), torch.zeros(1, 64),
-                     torch.zeros(1), torch.zeros(1, 64, 130),
-                     torch.zeros(1, 64, 130), chunk=32)
+                     torch.zeros(1), torch.zeros(1, 64, 257),
+                     torch.zeros(1, 64, 257), chunk=32)
     assert issubclass(fa.ConfigRejected, ValueError)
 
 
@@ -274,14 +360,19 @@ def test_attention_plans_are_pinned():
     assert fa.plan(64, 64, 256, 66).sub_q == 64
     assert fa.plan(96, 48, 192, 1, torch.bfloat16) == fa.Plan(
         True, 64, 256, 64)
-    assert fa.plan(128, 128, 512, 129) is None
+    assert fa.plan(128, 128, 512, 129) == fa.Plan(False, 256, 128, 32)
+    assert fa.plan(1024, 128, 2048, 256, torch.bfloat16) == fa.Plan(
+        True, 256, 128, 32)
+    assert fa.plan(128, 128, 512, 256).col_blocks == 2
+    assert fa.plan(128, 128, 512, 128).col_blocks == 1
+    assert fa.plan(128, 128, 512, 257) is None
     assert fa.plan(128, 128, 512, 0) is None
     assert fa.plan(96, 128, 512, 64) is None
     assert fa.plan(128, 128, 512, 64, torch.float64) is None
     assert not fa.fits({"block_q": 96, "block_kv": 128}, {"seq": 512})
     assert fa.INSTANTIATIONS == tuple(
-        (b, dm, *sh) for b in (0, 1) for dm in (64, 128)
-        for sh in (fa.WIDE, fa.NARROW))
+        (b, dm, *sh) for b in (0, 1) for dm in (64, 128, 256)
+        for sh in ((fa.WIDE, fa.NARROW) if dm <= 128 else (fa.NARROW,)))
 
 
 def _attn_mirror(q, k, v, block_q, block_kv, causal, window, pl, *,
