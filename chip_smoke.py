@@ -53,8 +53,15 @@ Phases (any failure ends the script with a non-zero exit):
      pass, chunk outputs) beside the operations bound and the chunked
      algorithm's floor; the budget scan over 1024 runs of full-space
      permutations of the GEMM's 10,140 configs with budgets that run out
-     mid-row (bit-identical), and timed at R = 1 on the segment lengths
-     phase 6 sends; times by CUDA events (median of 10) beside each
+     mid-row (bit-identical), and at R = 1 on the segment lengths phase 6
+     sends, with no cap and with a cap by time and by count that refuses
+     mid-segment (bit-identical), timed there beside a latency floor
+     (three dependent L2 loads and n dependent float64 adds, measured by
+     a probe kernel built beside the others) and the host wall of one
+     ``commit_rows`` call of that many fresh rows (median, min, max of
+     300), and one ``commit_rows`` call with a cap through its packed
+     blocks (one launch, bit-identical to the plain version fed the
+     blocks); times by CUDA events (median of 10) beside each
      kernel's bound and, where one PyTorch call computes the same
      function, that call's time;
   4. the main path, part one: a live random-search recording of each hub
@@ -76,7 +83,8 @@ Phases (any failure ends the script with a non-zero exit):
      algorithm over its 108-point Table III grid across the six
      recordings (3 repeats, cut from the paper's 25), torch engine; the
      best, closest-to-mean and worst hyperconfigurations are rescored with
-     the numpy engine and must be bit-identical.
+     the numpy engine and must be bit-identical; its wall per budget-scan
+     launch.
 
 Before phase 5 every recording is checked to let a tuning run end
 (``ends_check``); phases 5 and 6 each fail past a wall-clock limit.
@@ -179,6 +187,7 @@ SSD_CHUNKS = (128, 64, 512)
 # the GA's populations of the Table III grid (10, 20, 30), padded as the
 # replay engine pads a batch: the segments phase 6 sends at R = 1
 SCAN_R1_LENGTHS = (16, 32)
+COMMIT_BATCHES = 300         # commit_rows calls timed at each length
 SSD_TOL = 3e-3               # tests/test_kernels.py
 STRATEGIES = ("random_search", "genetic_algorithm", "simulated_annealing",
               "pso")
@@ -850,8 +859,186 @@ def synthetic_gemm_cache(seed: int = 0):
     return CacheFile("gemm", "synthetic", space, results)
 
 
-def check_scan(device: str, runs: int, seed: int = 1) -> dict:
-    """Budget-scan kernel vs its plain version: bit-identical."""
+def commit_rows_ms(cache, length: int, batches: int, device: str) -> tuple:
+    """``(median, min, max, first)`` host wall in ms of one
+    ``ReplayEngine.commit_rows`` call of ``length`` fresh rows (distinct
+    rows of one permutation, no budget cap) on a fresh
+    ``SimulationRunner(engine="torch")``, over ``batches`` calls after the
+    first, which lays out the runner's blocks and is timed apart; each
+    call ends synchronised."""
+    from repro_torch.core.budget import Budget
+    from repro_torch.core.runner import SimulationRunner
+    runner = SimulationRunner(cache, Budget(), engine="torch", device=device)
+    engine = runner.torch_engine()
+    rows = np.random.default_rng(3).permutation(cache.space.compiled.n_valid)
+    if (batches + 1) * length > len(rows):
+        fail(f"commit_rows_ms: {batches + 1} batches of {length} rows "
+             f"exceed the space")
+    t0 = time.perf_counter()
+    engine.commit_rows(rows[:length])
+    first = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for b in range(1, batches + 1):
+        batch = rows[b * length:(b + 1) * length]
+        t0 = time.perf_counter()
+        engine.commit_rows(batch)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls), min(walls), max(walls), first
+
+
+LATENCY_SRC = r"""
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ unsigned long long now_after(long long dep) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t) : "l"(dep));
+  return t;
+}
+
+__global__ void chase(const long long* __restrict__ next, int steps,
+                      long long* sink, unsigned long long* ns) {
+  long long i = 0;
+  for (int s = 0; s < steps; ++s) i = next[i];
+  const unsigned long long t0 = now_after(i);
+  for (int s = 0; s < steps; ++s) i = next[i];
+  const unsigned long long t1 = now_after(i);
+  sink[0] = i;
+  ns[0] = t1 - t0;
+}
+
+__global__ void add_chain(double x, double y, int steps, double* sink,
+                          unsigned long long* ns) {
+  double t = x;
+  const unsigned long long t0 = now_after(__double_as_longlong(t));
+#pragma unroll 16
+  for (int s = 0; s < steps; ++s) t = __dadd_rn(t, y);
+  const unsigned long long t1 = now_after(__double_as_longlong(t));
+  sink[0] = t;
+  ns[0] = t1 - t0;
+}
+
+extern "C" int probe_latency(const void* next, int chase_steps,
+                             int add_steps, void* sink, void* ns) {
+  chase<<<1, 1>>>(static_cast<const long long*>(next), chase_steps,
+                  static_cast<long long*>(sink),
+                  static_cast<unsigned long long*>(ns));
+  add_chain<<<1, 1>>>(1.0, 1e-9, add_steps,
+                      static_cast<double*>(sink) + 1,
+                      static_cast<unsigned long long*>(ns) + 1);
+  return static_cast<int>(cudaDeviceSynchronize());
+}
+"""
+LATENCY_LIB = ROOT / "build" / "latency_probe" / "latency.so"
+CHASE_ENTRIES = 1 << 19  # 4 MB of int64: in L2, past L1
+CHASE_STEPS = 1 << 14
+ADD_STEPS = 1 << 20
+
+
+def start_latency_build() -> subprocess.Popen:
+    """Start nvcc on the latency probe (``latency_ns``), to run beside the
+    kernels' builds."""
+    from repro_torch import cuda
+    src = LATENCY_LIB.with_suffix(".cu")
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(LATENCY_SRC)
+    return subprocess.Popen(
+        [cuda.toolkit(), *cuda.NVCC_FLAGS, "-o", str(LATENCY_LIB), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def latency_ns(build: subprocess.Popen) -> tuple:
+    """``(load, add)``: ns of one dependent global load that hits L2 (a
+    pointer chase of 16,384 steps through a random cycle over 4 MB, after
+    one untimed pass) and of one dependent float64 add (a chain of 2**20
+    ``__dadd_rn``) on the card, each timed by ``%globaltimer`` inside a
+    one-thread kernel; ``build`` is ``start_latency_build()``'s nvcc."""
+    import ctypes
+    log = build.communicate()[0]
+    if build.returncode:
+        fail(f"nvcc failed for the latency probe:\n{log}")
+    lib = ctypes.CDLL(str(LATENCY_LIB))
+    lib.probe_latency.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_void_p]
+    perm = np.random.default_rng(0).permutation(CHASE_ENTRIES)
+    nxt = np.empty(CHASE_ENTRIES, dtype=np.int64)
+    nxt[perm] = np.roll(perm, -1)  # one cycle through every entry
+    nxt_d = torch.from_numpy(nxt).cuda()
+    sink = torch.zeros(2, dtype=torch.int64, device="cuda")
+    ns = torch.zeros(2, dtype=torch.int64, device="cuda")
+    rc = lib.probe_latency(nxt_d.data_ptr(), CHASE_STEPS, ADD_STEPS,
+                           sink.data_ptr(), ns.data_ptr())
+    if rc:
+        fail(f"the latency probe failed (cudaError {rc})")
+    chase, add = ns.tolist()
+    return chase / CHASE_STEPS, add / ADD_STEPS
+
+
+def scan_r1_cases(args: tuple, length: int) -> dict:
+    """R = 1 inputs over the first ``length`` entries of ``args``' run 0
+    (which has no cap): ``none`` as it is, ``time`` and ``count`` with a
+    cap by time and by count that each refuse the segment's middle
+    entry."""
+    from repro_torch.core.engine_torch import replay as rp
+    none = (args[0][:1, :length].contiguous(), args[1][:1, :length],
+            *args[2:6], *(t[:1] for t in args[6:]))
+    mid = length // 2
+    t_after = rp.budget_scan_plain(*none)[1]
+    return {"none": none,
+            "time": (*none[:8], t_after[:, mid - 1].contiguous(), none[9]),
+            "count": (*none[:9], torch.full_like(none[9], mid))}
+
+
+def check_packed_commit(cache, length: int, device: str) -> None:
+    """One ``ReplayEngine.commit_rows`` call of ``length`` fresh rows, with
+    an eval cap that refuses the middle one, on a fresh
+    ``SimulationRunner(engine="torch")``: one launch, and its packed
+    blocks' outputs (host and device) bit-identical to
+    ``budget_scan_plain`` fed the device block's input views."""
+    from repro_torch.core.budget import Budget, BudgetExhausted
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.core.runner import SimulationRunner
+    mid = length // 2
+    runner = SimulationRunner(cache, Budget(max_evals=mid), engine="torch",
+                              device=device)
+    engine = runner.torch_engine()
+    rows = np.random.default_rng(4).permutation(
+        cache.space.compiled.n_valid)[:length]
+    before = rp.launches
+    got = engine.commit_rows(rows)
+    made = rp.launches - before
+    npad = rp._pad_len(length)
+    blocks = engine.blocks()
+    dev_in, dev_out = blocks.device_views(npad)
+    host_out = blocks.call(npad)[1]
+    tables = rp.replay_tables(cache.columns, cache.space.compiled, device)
+    # the engine passes the mean charge only when a fresh row is a miss
+    miss = (tables.col_of_row[dev_in["rows"]][dev_in["fresh"]] < 0).any()
+    want = rp.budget_scan_plain(
+        dev_in["rows"], dev_in["fresh"], tables.col_of_row, tables.time_s,
+        tables.charge_s, cache.mean_eval_charge() if miss else 0.0,
+        dev_in["spent0"],
+        dev_in["evals0"], dev_in["max_s"], dev_in["max_e"])
+    same = all(torch.equal(dev_out[k], w)
+               and torch.equal(torch.from_numpy(host_out[k]), w.cpu())
+               for k, w in zip(rp.OUT_ORDER, want))
+    print(f"  commit_rows R = 1 x {length} through the packed blocks, cap "
+          f"{mid} evals: {made} launch, {runner.budget.spent_evals} "
+          f"commits, outputs (host and device) vs plain "
+          f"{'bit-identical' if same else 'DIFFERENT'}")
+    if not same:
+        fail("the packed commit_rows call disagrees with budget_scan_plain")
+    if (made != 1 or not isinstance(got, BudgetExhausted)
+            or runner.budget.spent_evals != mid):
+        fail(f"the packed commit_rows call made {made} launches and "
+             f"{runner.budget.spent_evals} commits (expected 1 and {mid}, "
+             f"then BudgetExhausted)")
+
+
+def scan_inputs(device: str, runs: int, seed: int = 1) -> tuple:
+    """``(cache, args)``: the synthetic GEMM cache and ``budget_scan``'s
+    arguments over ``runs`` full-space permutations of it, with budgets
+    that run out mid-row."""
     from repro_torch.core.engine_torch import replay as rp
     cache = synthetic_gemm_cache()
     compiled, cols = cache.space.compiled, cache.columns
@@ -877,6 +1064,15 @@ def check_scan(device: str, runs: int, seed: int = 1) -> dict:
             torch.zeros(runs, dtype=torch.float64, device=device),
             torch.zeros(runs, dtype=torch.int64, device=device),
             dev(max_s), dev(max_e.astype(np.int64)))
+    return cache, args
+
+
+def check_scan(device: str, runs: int,
+               latency_build: subprocess.Popen) -> dict:
+    """Budget-scan kernel vs its plain version: bit-identical."""
+    from repro_torch.core.engine_torch import replay as rp
+    cache, args = scan_inputs(device, runs)
+    n = args[0].shape[1]
     got = rp.budget_scan(*args)
     want = rp.budget_scan_plain(*args)
     same = all(torch.equal(x, y) for x, y in zip(got, want))
@@ -900,9 +1096,23 @@ def check_scan(device: str, runs: int, seed: int = 1) -> dict:
     print(f"  budget_scan {runs}x{n}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
           f"({moved / 1e6:.1f} MB moved)")
+    load_ns, add_ns = latency_ns(latency_build)
     for length in SCAN_R1_LENGTHS:
-        one = (args[0][:1, :length].contiguous(), args[1][:1, :length],
-               *args[2:6], *(t[:1] for t in args[6:]))
+        cases = scan_r1_cases(args, length)
+        for cap, case in cases.items():
+            got1, want1 = rp.budget_scan(*case), rp.budget_scan_plain(*case)
+            same1 = all(torch.equal(x, y) for x, y in zip(got1, want1))
+            print(f"  budget_scan R = 1 x {length}, cap {cap}: "
+                  f"{int(got1[0].sum())} commits, exhausted "
+                  f"{bool(got1[6][0])}; kernel vs plain "
+                  f"{'bit-identical' if same1 else 'DIFFERENT'}")
+            if not same1:
+                fail(f"budget_scan R = 1 x {length} (cap {cap}) disagrees "
+                     f"with its plain version")
+            if bool(got1[6][0]) != (cap != "none"):
+                fail(f"budget_scan R = 1 x {length}: cap {cap} did not "
+                     f"cut where it should")
+        one = cases["none"]
         one_ms = spread_ms(lambda: rp.budget_scan(*one), reps=20)
         kernel_ms = kernel_device_ms(lambda: rp.budget_scan(*one),
                                      "budget_scan_kernel")
@@ -911,13 +1121,23 @@ def check_scan(device: str, runs: int, seed: int = 1) -> dict:
                         *got1)
         bound1 = max(moved1 / PEAK_BYTES,
                      int(got1[0].sum().item()) / PEAK_F64_FLOPS) * 1e3
+        floor1 = (3 * load_ns + length * add_ns) / 1e6
         print(f"  budget_scan R = 1 x {length} (phase 6's GA batches): "
               f"call {one_ms[0]:.4f} ms by events (min {one_ms[1]:.4f}, "
               f"host enqueue median {one_ms[3]:.4f}), kernel "
               + ("not measured" if kernel_ms is None
                  else f"{kernel_ms:.4f} ms")
               + f" on the device (torch.profiler), bound {bound1:.6f} ms "
-              f"({moved1 / 1e6:.3f} MB moved)")
+              f"({moved1 / 1e6:.3f} MB moved), latency floor "
+              f"{floor1:.6f} ms (3 dependent L2 loads of {load_ns:.1f} ns, "
+              f"{length} dependent float64 adds of {add_ns:.2f} ns)")
+        wall = commit_rows_ms(cache, length, COMMIT_BATCHES, device)
+        print(f"  commit_rows R = 1 x {length}: wall per call median "
+              f"{wall[0]:.4f} ms, min {wall[1]:.4f}, max {wall[2]:.4f} "
+              f"({COMMIT_BATCHES} batches of {length} fresh rows, one "
+              f"SimulationRunner(engine=\"torch\")); its first call, "
+              f"which lays out the runner's blocks, {wall[3]:.4f} ms")
+        check_packed_commit(cache, length, device)
     return kernel_row("budget_scan", "src/repro_torch/core/engine_torch/"
                       "csrc/budget_scan.cu",
                       "src/repro/core/engine_jax/replay.py:66", err, ms,
@@ -1130,6 +1350,7 @@ def main() -> int:
 
     print("[2] build")
     t0 = time.perf_counter()
+    latency_build = start_latency_build()
     secs = cuda.build()
     print(f"  built {sorted(secs)} in {time.perf_counter() - t0:.2f} s "
           f"(per kernel: {secs})")
@@ -1148,7 +1369,7 @@ def main() -> int:
     kernels = [check_gemm(device, GEMM_SHAPES, HUB), check_conv(device),
                check_hotspot(device), check_dedisp(device),
                check_attention(device), check_ssd(device),
-               check_scan(device, SCAN_RUNS)]
+               check_scan(device, SCAN_RUNS, latency_build)]
 
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1180,8 +1401,12 @@ def main() -> int:
     print(f"[6] main path: exhaustive GA hypertuning across the "
           f"{len(loaded)} recordings")
     t0 = time.perf_counter()
+    scans = rp.launches
     hypertune(loaded, device, HYPERTUNE_REPEATS, HYPERTUNE_LIMIT_S)
-    print(f"  [phase 6: {time.perf_counter() - t0:.1f} s]")
+    wall = time.perf_counter() - t0
+    scans = rp.launches - scans
+    print(f"  [phase 6: {wall:.1f} s; {scans} budget-scan launches, "
+          f"{wall / max(scans, 1) * 1e3:.4f} ms of wall a launch]")
     launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
     launches["budget_scan"] = rp.launches
     print(f"  launches on the main path: {launches}")

@@ -17,22 +17,42 @@
 //
 // The result must be bit-identical to the numpy engine's left-to-right
 // float64 additions (np.cumsum / the scalar commit loop): no parallel
-// scan, no reordering. One thread walks one run's segment in order, and
-// every add is an explicit round-to-nearest __dadd_rn; the build also
-// passes -fmad=false, though an add with no multiply gives FMA contraction
-// nothing to fuse.
+// scan, no reordering. Every add is an explicit round-to-nearest
+// __dadd_rn in entry order; the build also passes -fmad=false.
 //
 // What bounds it on the H100: it moves bytes and does almost no arithmetic.
 // Per entry it reads rows (8 B) and fresh (1 B) and writes accept (1 B),
-// t_after, value and charge (8 B each); the tables are read through a
-// gather. At R=1024 runs x N=10,140 rows that is about 0.35 GB, ~0.1 ms at
-// 3.35 TB/s. This simple design is far from that: one thread per run
-// means at most R threads in flight (1024 threads fill under 8 of the 132
-// SMs), each walking N dependent steps, with lanes of a warp touching
-// addresses N elements apart. It is latency-bound, and stays so here on
-// purpose: a first kernel that is right. Splitting the gathers off the
-// dependent chain, a run-major layout for coalescing, and more runs per
-// launch are later work.
+// t_after, value and charge (8 B each); the tables (at most 10,140 x 20 B)
+// stay in L2. At R = 1024 runs x N = 10,140 that is about 0.35 GB, ~0.1 ms
+// at 3.35 TB/s. At R = 1 (a GA generation, one annealing move) a call is a
+// latency chain instead: rows -> col_of_row -> time_s / charge_s, three
+// dependent loads, then n dependent float64 adds.
+//
+// The design rests on one fact: once a fresh entry is refused, spent and
+// evals stop changing, so every later fresh entry is refused too. The
+// accepted entries are the fresh entries before the first refusal, and
+// only the adds over them must run in order.
+//
+//   * A warp per run, kWarps runs a block. The warp takes its segment in
+//     chunks of kChunk entries; lane l owns entries l, l + 32, ... of a
+//     chunk, so each load and store of the warp is 32 neighbouring
+//     elements (row-major (R, N) is contiguous within a run).
+//   * The gathers are off the chain: every lane issues its col_of_row and
+//     time_s / charge_s gathers at once, writes value and charge, and puts
+//     its charges in the warp's slice of shared memory. The next chunk's
+//     rows and fresh are loaded before the walk, so they are in flight
+//     while it runs.
+//   * One lane walks the chunk in entry order: per entry a shared-memory
+//     read, a bit test of the fresh mask (a ballot) and a __dadd_rn, then
+//     the spend after the entry written back in place. It compares nothing:
+//     the walk is speculative, as if every fresh entry committed.
+//   * The caps are then checked by all lanes at once, each against the
+//     spend before its entries (the slot before, read back) and the count
+//     before them (a popcount of the fresh mask). The first refusal cuts
+//     the chunk: entries before it keep the walk's values, entries from it
+//     on get accept 0 and the spend before it. After a refusal the warp
+//     writes the rest of the segment without walking: accept 0, t_after
+//     the frozen spend, value and charge gathered as before.
 
 #include <cuda_runtime.h>
 
@@ -41,9 +61,12 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;            // runs a block
+constexpr int kSlots = 4;            // entries a lane owns in a chunk
+constexpr int kChunk = 32 * kSlots;  // entries a warp takes at a time
+constexpr unsigned kAll = 0xffffffffu;
 
-__global__ void budget_scan_kernel(
+__global__ void __launch_bounds__(32 * kWarps) budget_scan_kernel(
     const int64_t* __restrict__ rows, const uint8_t* __restrict__ fresh,
     const int32_t* __restrict__ col_of_row, const double* __restrict__ time_s,
     const double* __restrict__ charge_s, double mean_charge,
@@ -53,34 +76,117 @@ __global__ void budget_scan_kernel(
     double* __restrict__ t_after, double* __restrict__ value,
     double* __restrict__ charge, double* __restrict__ spent_out,
     int64_t* __restrict__ evals_out, uint8_t* __restrict__ exhausted) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= runs) return;
-  double spent = spent0[r];
-  int64_t evals = evals0[r];
+  __shared__ double chain_smem[kWarps][kChunk];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= runs) return;  // the whole warp: no block-wide barrier follows
+  double* chain = chain_smem[warp];
+  const unsigned below = (1u << lane) - 1u;  // lanes before this one
+  const int64_t base = static_cast<int64_t>(r) * n;
   const double cap_s = max_s[r];
   const int64_t cap_e = max_e[r];
-  bool exh = false;
-  const int64_t base = static_cast<int64_t>(r) * n;
-  for (int64_t j = 0; j < n; ++j) {
-    const int64_t idx = base + j;
-    const int32_t col = col_of_row[rows[idx]];
-    const double v = col < 0 ? HUGE_VAL : time_s[col];
-    const double c = col < 0 ? mean_charge : charge_s[col];
-    const bool f = fresh[idx] != 0;
-    const bool commit = f && spent < cap_s && evals < cap_e;
-    if (commit) {
-      spent = __dadd_rn(spent, c);
-      evals += 1;
-    }
-    exh = exh || (f && !commit);
-    accept[idx] = commit;
-    t_after[idx] = spent;
-    value[idx] = v;
-    charge[idx] = c;
+  double spent = spent0[r];
+  int64_t evals = evals0[r];
+  bool frozen = false;
+
+  int64_t row[kSlots];
+  bool fr[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int64_t j = 32 * s + lane;
+    row[s] = j < n ? rows[base + j] : 0;
+    fr[s] = j < n && fresh[base + j] != 0;
   }
-  spent_out[r] = spent;
-  evals_out[r] = evals;
-  exhausted[r] = exh;
+  for (int64_t j0 = 0; j0 < n; j0 += kChunk) {
+    const int len = static_cast<int>(n - j0 < kChunk ? n - j0 : kChunk);
+    double c[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int k = 32 * s + lane;
+      const int32_t col = k < len ? col_of_row[row[s]] : -1;
+      const double v = col < 0 ? HUGE_VAL : time_s[col];
+      c[s] = col < 0 ? mean_charge : charge_s[col];
+      if (k < len) {
+        value[base + j0 + k] = v;
+        charge[base + j0 + k] = c[s];
+      }
+    }
+    unsigned fm[kSlots];  // fresh entries of each slot, one bit a lane
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) fm[s] = __ballot_sync(kAll, fr[s]);
+    // the next chunk's rows and fresh, in flight during the walk
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int64_t j = j0 + kChunk + 32 * s + lane;
+      row[s] = j < n ? rows[base + j] : 0;
+      fr[s] = j < n && fresh[base + j] != 0;
+    }
+    if (frozen) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int k = 32 * s + lane;
+        if (k < len) {
+          accept[base + j0 + k] = 0;
+          t_after[base + j0 + k] = spent;
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) chain[32 * s + lane] = c[s];
+    __syncwarp();
+    if (lane == 0) {
+      double t = spent;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        if (32 * s >= len) break;
+#pragma unroll
+        for (int l = 0; l < 32; ++l) {
+          if ((fm[s] >> l) & 1u) t = __dadd_rn(t, chain[32 * s + l]);
+          chain[32 * s + l] = t;
+        }
+      }
+    }
+    __syncwarp();
+    // the caps, checked by every lane against the spend and count before
+    // each of its entries; the first refusal in entry order cuts the chunk
+    int cut = kChunk;
+    int64_t ev = evals;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int k = 32 * s + lane;
+      const double before = k == 0 ? spent : chain[k - 1];
+      const int64_t ev_before = ev + __popc(fm[s] & below);
+      const unsigned refused = __ballot_sync(
+          kAll, ((fm[s] >> lane) & 1u) &&
+                    !(before < cap_s && ev_before < cap_e));
+      if (cut == kChunk && refused) cut = 32 * s + __ffs(refused) - 1;
+      if (cut == kChunk) ev += __popc(fm[s]);
+    }
+    double stop = spent;  // the spend before the refused entry
+    if (cut < kChunk) {
+      if (cut > 0) stop = chain[cut - 1];
+      ev += __popc(fm[cut / 32] & ((1u << (cut % 32)) - 1u));
+    }
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int k = 32 * s + lane;
+      if (k < len) {
+        accept[base + j0 + k] = k < cut && ((fm[s] >> lane) & 1u);
+        t_after[base + j0 + k] = k < cut ? chain[k] : stop;
+      }
+    }
+    spent = cut < kChunk ? stop : chain[len - 1];
+    evals = ev;
+    frozen = cut < kChunk;
+    __syncwarp();  // every lane has read the chain before the next chunk
+  }
+  if (lane == 0) {
+    spent_out[r] = spent;
+    evals_out[r] = evals;
+    exhausted[r] = frozen;
+  }
 }
 
 }  // namespace
@@ -98,8 +204,9 @@ int repro_budget_scan(const void* rows, const void* fresh,
                       long long n, void* accept, void* t_after, void* value,
                       void* charge, void* spent, void* evals,
                       void* exhausted, void* stream) {
-  const dim3 grid((runs + kThreads - 1) / kThreads);
-  budget_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((runs + kWarps - 1) / kWarps);
+  budget_scan_kernel<<<grid, 32 * kWarps, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(rows), static_cast<const uint8_t*>(fresh),
       static_cast<const int32_t*>(col_of_row),
       static_cast<const double*>(time_s), static_cast<const double*>(charge_s),

@@ -2,22 +2,25 @@
 
 Port of ``src/repro/core/engine_jax/replay.py``. The jitted ``lax.scan``
 (``budget_scan`` + ``_replay_segment``, vmapped over runs) becomes the
-hand-written CUDA kernel ``csrc/budget_scan.cu``: one thread per run walks
-its row segment left to right, gathering value and charge through
-``col_of_row`` and accumulating the spend with the exact float64 additions
-of the scalar loop and ``np.cumsum``. ``budget_scan`` below is its wrapper;
-``budget_scan_plain`` is the same function in plain PyTorch (a float64 loop
-over the segment, vectorised across runs; ``torch.cumsum`` is banned there
-too, because any parallel scan reassociates the sums and drifts by ULPs).
+hand-written CUDA kernel ``csrc/budget_scan.cu``: a warp per run gathers
+value and charge through ``col_of_row`` for a chunk of its segment at once,
+and one lane then walks the chunk's charges with the exact left-to-right
+float64 additions of the scalar loop and ``np.cumsum``.
+``budget_scan`` below is its wrapper; ``budget_scan_plain`` is the same
+function in plain PyTorch (a float64 loop over the segment, vectorised
+across runs; ``torch.cumsum`` is banned there too, because any parallel
+scan reassociates the sums and drifts by ULPs).
 
 Within-batch first-occurrence dedup stays on the host (the same stable
 argsort as ``SimulationRunner._commit_rows_vectorized``), so ``fresh``
 arrives fully resolved and the kernel only applies the budget to it.
 Batches are padded to power-of-two lengths, as in the reference.
 
-Every batch with a fresh row dispatches, single rows included: the host
-round trip per small batch (a GA generation, one simulated-annealing move)
-is the price of this slice, measured rather than hidden (PERF.md).
+Every batch with a fresh row dispatches, single rows included. A
+``ReplayEngine`` call packs its inputs into one block (``ScanLayout``), so
+it costs one copy to the card, one launch, one copy back and one
+synchronisation (``ScanBlocks``); fused campaigns, which remove the calls,
+are later work.
 """
 from __future__ import annotations
 
@@ -62,8 +65,8 @@ def first_occurrence(rows: np.ndarray) -> np.ndarray:
 
 # ------------------------------------------------------------------ kernel
 def budget_scan_plain(rows, fresh, col_of_row, time_s, charge_s,
-                      mean_charge: float, spent0, evals0, max_s, max_e
-                      ) -> tuple:
+                      mean_charge: float, spent0, evals0, max_s, max_e,
+                      out: "tuple | None" = None) -> tuple:
     """The kernel's function in plain PyTorch, on any device.
 
     ``rows`` int64 (R, N) space rows, ``fresh`` bool (R, N); per-run
@@ -72,25 +75,33 @@ def budget_scan_plain(rows, fresh, col_of_row, time_s, charge_s,
     the commit mask, the spend after each entry, the gathered value and
     charge, the final spend and eval count, and whether any fresh entry was
     refused (the ``BudgetExhausted`` point of the equivalent ``run``
-    loop)."""
+    loop). ``out``, seven tensors of those shapes and types, receives the
+    results in place of new tensors."""
+    runs, n = rows.shape
+    if out is None:
+        out = (torch.empty_like(fresh),
+               *(torch.empty((runs, n), dtype=torch.float64,
+                             device=rows.device) for _ in range(3)),
+               torch.empty_like(spent0), torch.empty_like(evals0),
+               torch.empty(runs, dtype=torch.bool, device=rows.device))
+    accept, t_after, value, charge, spent, evals, exhausted = out
     col = col_of_row[rows].long()
     miss = col < 0
     safe = col.clamp(min=0)
-    value = torch.where(miss, torch.full_like(time_s[safe], INVALID),
-                        time_s[safe])
-    charge = torch.where(miss, torch.full_like(charge_s[safe], mean_charge),
-                         charge_s[safe])
-    spent, evals = spent0.clone(), evals0.clone()
-    accept = torch.zeros_like(fresh)
-    t_after = torch.empty_like(charge)
-    for j in range(rows.shape[1]):
+    torch.where(miss, torch.full_like(time_s[safe], INVALID), time_s[safe],
+                out=value)
+    torch.where(miss, torch.full_like(charge_s[safe], mean_charge),
+                charge_s[safe], out=charge)
+    spent.copy_(spent0)
+    evals.copy_(evals0)
+    for j in range(n):
         commit = fresh[:, j] & (spent < max_s) & (evals < max_e)
-        spent = torch.where(commit, spent + charge[:, j], spent)
-        evals = evals + commit.long()
+        spent.copy_(torch.where(commit, spent + charge[:, j], spent))
+        evals.add_(commit.long())
         accept[:, j] = commit
         t_after[:, j] = spent
-    exhausted = (fresh & ~accept).any(dim=1)
-    return accept, t_after, value, charge, spent, evals, exhausted
+    exhausted.copy_((fresh & ~accept).any(dim=1))
+    return out
 
 
 def _lib() -> ctypes.CDLL:
@@ -103,6 +114,21 @@ def _lib() -> ctypes.CDLL:
                        + [ctypes.c_int, ctypes.c_longlong]
                        + [ctypes.c_void_p] * 8)
     return lib
+
+
+def _launch(rows, fresh, col_of_row, time_s, charge_s, mean_charge: float,
+            spent0, evals0, max_s, max_e, runs: int, n: int, accept,
+            t_after, value, charge, spent, evals, exhausted,
+            device: torch.device) -> None:
+    """Launch the kernel on device pointers (ints); counts the launch."""
+    global launches
+    lib = _lib()
+    rc = lib.repro_budget_scan(
+        rows, fresh, col_of_row, time_s, charge_s, float(mean_charge),
+        spent0, evals0, max_s, max_e, runs, n, accept, t_after, value,
+        charge, spent, evals, exhausted, cuda.stream_handle(device))
+    cuda.check_launch(lib, rc, "budget_scan")
+    launches += 1
 
 
 _ARG_TYPES = (("rows", torch.int64, 2), ("fresh", torch.bool, 2),
@@ -118,7 +144,6 @@ def budget_scan(rows, fresh, col_of_row, time_s, charge_s,
     card, the plain version for tensors on the CPU. Rows must lie in
     ``[0, len(col_of_row))`` — callers check on the host, where the rows
     come from (an out-of-range row would read outside the table)."""
-    global launches
     args = (rows, fresh, col_of_row, time_s, charge_s, spent0, evals0,
             max_s, max_e)
     device = rows.device
@@ -147,19 +172,159 @@ def budget_scan(rows, fresh, col_of_row, time_s, charge_s,
     spent = torch.empty(runs, dtype=torch.float64, device=device)
     evals = torch.empty(runs, dtype=torch.int64, device=device)
     exhausted = torch.empty(runs, dtype=torch.bool, device=device)
-    if runs == 0:
-        return accept, t_after, value, charge, spent, evals, exhausted
-    lib = _lib()
-    rc = lib.repro_budget_scan(
-        rows.data_ptr(), fresh.data_ptr(), col_of_row.data_ptr(),
-        time_s.data_ptr(), charge_s.data_ptr(), float(mean_charge),
-        spent0.data_ptr(), evals0.data_ptr(), max_s.data_ptr(),
-        max_e.data_ptr(), runs, n, accept.data_ptr(), t_after.data_ptr(),
-        value.data_ptr(), charge.data_ptr(), spent.data_ptr(),
-        evals.data_ptr(), exhausted.data_ptr(), cuda.stream_handle(device))
-    cuda.check_launch(lib, rc, "budget_scan")
-    launches += 1
-    return accept, t_after, value, charge, spent, evals, exhausted
+    out = (accept, t_after, value, charge, spent, evals, exhausted)
+    if runs:
+        _launch(*(t.data_ptr() for t in args[:5]), mean_charge,
+                *(t.data_ptr() for t in args[5:]), runs, n,
+                *(t.data_ptr() for t in out), device)
+    return out
+
+
+# ------------------------------------------------------------ packed call
+# The fields of a call's two blocks, (name, dtype, per): "entry" fields are
+# (runs, npad), "run" fields (runs,). The 8-byte fields come first and the
+# byte fields last, so every field starts on a multiple of 8 bytes.
+IN_FIELDS = (("rows", torch.int64, "entry"), ("spent0", torch.float64, "run"),
+             ("evals0", torch.int64, "run"), ("max_s", torch.float64, "run"),
+             ("max_e", torch.int64, "run"), ("fresh", torch.bool, "entry"))
+OUT_FIELDS = (("t_after", torch.float64, "entry"),
+              ("value", torch.float64, "entry"),
+              ("charge", torch.float64, "entry"),
+              ("spent", torch.float64, "run"), ("evals", torch.int64, "run"),
+              ("accept", torch.bool, "entry"),
+              ("exhausted", torch.bool, "run"))
+# budget_scan_plain's result order
+OUT_ORDER = ("accept", "t_after", "value", "charge", "spent", "evals",
+             "exhausted")
+
+
+class ScanLayout:
+    """Where each field of a call's input and output blocks lies: byte
+    offsets for ``runs`` runs of ``npad`` entries, every one a multiple of
+    8. Checks the fields' types and alignment once, when it is made."""
+
+    __slots__ = ("runs", "npad", "offsets", "nbytes")
+
+    def __init__(self, runs: int, npad: int):
+        self.runs, self.npad = runs, npad
+        self.offsets, self.nbytes = {}, {}
+        for block, fields in (("in", IN_FIELDS), ("out", OUT_FIELDS)):
+            off = 0
+            for name, dtype, per in fields:
+                if off % 8:
+                    raise ValueError(f"ScanLayout: {name} would start at "
+                                     f"byte {off}, not a multiple of 8")
+                self.offsets[name] = off
+                off += self.numel(per) * dtype.itemsize
+            self.nbytes[block] = -(-off // 8) * 8
+
+    def numel(self, per: str) -> int:
+        return self.runs * (self.npad if per == "entry" else 1)
+
+    def shape(self, per: str) -> tuple:
+        return (self.runs, self.npad) if per == "entry" else (self.runs,)
+
+    def views(self, block: torch.Tensor, fields) -> dict:
+        """Typed tensor views of ``fields`` into the uint8 ``block``."""
+        out = {}
+        for name, dtype, per in fields:
+            off = self.offsets[name]
+            size = self.numel(per) * dtype.itemsize
+            out[name] = block[off:off + size].view(dtype).view(
+                self.shape(per))
+        return out
+
+
+class ScanBlocks:
+    """One runner's packed blocks on ``device``: a host staging block and a
+    device block for each direction, allocated at first use and grown to
+    the largest ``npad`` asked for. On the card the host blocks are pinned
+    and a call is one ``copy_(non_blocking=True)`` in, one launch on
+    pointers into the device blocks, one copy out and one synchronisation.
+    On the CPU the same blocks are ordinary tensors, and the plain version
+    reads and writes the device blocks' views. Never pickled."""
+
+    RUNS = 1  # a runner replays one run
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.capacity = 0  # the npad the blocks were laid out for
+        self._calls: dict = {}  # npad -> that layout's views and pointers
+
+    def _grow(self, npad: int) -> None:
+        layout = ScanLayout(self.RUNS, npad)
+        pin = self.device.type == "cuda"
+
+        def block(nbytes, device, pinned=False):
+            return torch.empty(nbytes, dtype=torch.uint8, device=device,
+                               pin_memory=pinned)
+
+        self.host_in = block(layout.nbytes["in"], "cpu", pin)
+        self.dev_in = block(layout.nbytes["in"], self.device)
+        self.dev_out = block(layout.nbytes["out"], self.device)
+        self.host_out = block(layout.nbytes["out"], "cpu", pin)
+        self.capacity = npad
+        self._calls = {}
+
+    def call(self, npad: int) -> tuple:
+        """``(inputs, outputs)``: numpy views of the host blocks laid out
+        for ``npad`` entries a run (``ScanLayout``'s fields by name). Write
+        the inputs, then ``run``; the outputs hold its results until the
+        next call."""
+        if npad > self.capacity:
+            self._grow(npad)
+        c = self._calls.get(npad)
+        if c is None:
+            c = self._calls[npad] = self._lay_out(npad)
+        return c["host_in"], c["host_out"]
+
+    def device_views(self, npad: int) -> tuple:
+        """``(inputs, outputs)``: the device blocks' tensor views laid out
+        for ``npad``, as the last ``run`` at that length read and wrote
+        them."""
+        c = self._calls[npad]
+        return c["dev_in"], c["dev_out"]
+
+    def _lay_out(self, npad: int) -> dict:
+        layout = ScanLayout(self.RUNS, npad)
+        nin, nout = layout.nbytes["in"], layout.nbytes["out"]
+        dev_in = layout.views(self.dev_in, IN_FIELDS)
+        dev_out = layout.views(self.dev_out, OUT_FIELDS)
+        return {"host_in": {k: v.numpy() for k, v in
+                            layout.views(self.host_in, IN_FIELDS).items()},
+                "host_out": {k: v.numpy() for k, v in
+                             layout.views(self.host_out, OUT_FIELDS).items()},
+                "copy_in": (self.dev_in[:nin], self.host_in[:nin]),
+                "copy_out": (self.host_out[:nout], self.dev_out[:nout]),
+                "dev_in": dev_in, "dev_out": dev_out,
+                "in_ptrs": {k: v.data_ptr() for k, v in dev_in.items()},
+                "out_ptrs": {k: v.data_ptr() for k, v in dev_out.items()}}
+
+    def run(self, npad: int, tables: ReplayTables,
+            mean_charge: float) -> None:
+        """Resolve the inputs written into ``call(npad)``'s views; the
+        results land in its output views."""
+        c = self._calls[npad]
+        dst, src = c["copy_in"]
+        dst.copy_(src, non_blocking=True)
+        if self.device.type == "cpu":
+            i = c["dev_in"]
+            budget_scan_plain(
+                i["rows"], i["fresh"], tables.col_of_row, tables.time_s,
+                tables.charge_s, mean_charge, i["spent0"], i["evals0"],
+                i["max_s"], i["max_e"],
+                out=tuple(c["dev_out"][name] for name in OUT_ORDER))
+        else:
+            i, o = c["in_ptrs"], c["out_ptrs"]
+            _launch(i["rows"], i["fresh"], tables.col_of_row.data_ptr(),
+                    tables.time_s.data_ptr(), tables.charge_s.data_ptr(),
+                    mean_charge, i["spent0"], i["evals0"], i["max_s"],
+                    i["max_e"], self.RUNS, npad,
+                    *(o[name] for name in OUT_ORDER), self.device)
+        dst, src = c["copy_out"]
+        dst.copy_(src, non_blocking=True)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
 
 def _budget_limits(budget) -> tuple:
@@ -188,6 +353,15 @@ class ReplayEngine:
     def __init__(self, runner):
         self.runner = runner
         self.dispatches = 0  # budget-scan dispatches (kernel or plain)
+        self._blocks: "ScanBlocks | None" = None
+
+    def blocks(self) -> ScanBlocks:
+        """The packed call blocks on the runner's current device."""
+        blocks = self._blocks
+        if blocks is None or blocks.device != torch.device(
+                self.runner.device):
+            blocks = self._blocks = ScanBlocks(self.runner.device)
+        return blocks
 
     def commit_rows(self, rows) -> "list | BudgetExhausted":
         runner = self.runner
@@ -211,23 +385,23 @@ class ReplayEngine:
         budget = runner.budget
         max_s, max_e = _budget_limits(budget)
         npad = _pad_len(n)
-        rows_p = np.zeros((1, npad), dtype=np.int64)
-        rows_p[0, :n] = rows
-        fresh_p = np.zeros((1, npad), dtype=bool)
-        fresh_p[0, :n] = fresh
         tables = replay_tables(cols, runner.space.compiled, runner.device)
-        dev = tables.device
+        blocks = self.blocks()
+        inp, out = blocks.call(npad)
+        inp["rows"][0, :n] = rows
+        inp["rows"][0, n:] = 0
+        inp["fresh"][0, :n] = fresh
+        inp["fresh"][0, n:] = False
+        inp["spent0"][0] = budget.spent_seconds
+        inp["evals0"][0] = budget.spent_evals
+        inp["max_s"][0] = max_s
+        inp["max_e"][0] = max_e
         self.dispatches += 1
-        out = budget_scan(
-            torch.from_numpy(rows_p).to(dev), torch.from_numpy(fresh_p).to(dev),
-            tables.col_of_row, tables.time_s, tables.charge_s, mean_charge,
-            torch.tensor([budget.spent_seconds], dtype=torch.float64,
-                         device=dev),
-            torch.tensor([budget.spent_evals], dtype=torch.int64, device=dev),
-            torch.tensor([max_s], dtype=torch.float64, device=dev),
-            torch.tensor([max_e], dtype=torch.int64, device=dev))
-        accept, t_after, value, charge, spent, evals, exhausted = (
-            o[0].cpu().numpy() for o in out)
+        blocks.run(npad, tables, mean_charge)
+        accept, t_after, value, charge = (out[k][0] for k in (
+            "accept", "t_after", "value", "charge"))
+        spent, evals, exhausted = (out[k][0] for k in (
+            "spent", "evals", "exhausted"))
         # ------------------------------------------------- host-side commit
         # (mirrors _commit_rows_vectorized: fresh commits build
         # Observations, revisits gather from the row-indexed object array)

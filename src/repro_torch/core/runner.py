@@ -338,18 +338,22 @@ class SimulationRunner(Runner):
         n = len(rows)
         if n == 0:
             return []
-        if self.engine == "torch":
-            # every batch with a fresh row dispatches the budget scan
-            # (single rows included — uniform coverage for the parity
-            # suite); fully-memoized batches short-circuit inside
-            return self.torch_engine().commit_rows(rows)
         if n == 1:
             # the single-move shape (simulated annealing, basin hopping,
-            # the thread bridge): skip every batch prologue
+            # the thread bridge): a revisit is a memo read on every engine;
+            # a fresh row skips every batch prologue on the host engines
             st = self._row_state()
             r = rows[0]
             obs = st[1][r]
-            return [obs] if obs is not None else self._commit_row(r, st)
+            if obs is not None:
+                return [obs]
+            if self.engine != "torch":
+                return self._commit_row(r, st)
+        if self.engine == "torch":
+            # every batch with a fresh row dispatches the budget scan
+            # (single rows included — uniform coverage for the parity
+            # suite); larger fully-memoized batches short-circuit inside
+            return self.torch_engine().commit_rows(rows)
         if n <= 256 and self.memo:
             # revisit fast path: local searches re-ask mostly-seen configs
             # (single moves, whole neighborhoods); a fully memoized batch

@@ -570,6 +570,78 @@ def test_budget_scan_kernel_bit_identical_to_plain(card):
         assert torch.equal(a.cpu(), b)
 
 
+def _scan_case(runs: int, n: int, seed: int = 0) -> tuple:
+    """Budget-scan inputs over a 10,140-row table (a sixth of it misses)
+    with non-fresh entries and a budget mix by run: no cap (inf and
+    2**62), a time cap, a count cap, both, and a count already spent (a
+    refusal at the first entry)."""
+    rng = np.random.default_rng(seed)
+    v = 10_140
+    rows = rng.integers(0, v, (runs, n))
+    fresh = rng.random((runs, n)) < 0.9
+    col = np.where(rng.random(v) < 1 / 6, -1,
+                   rng.permutation(v)).astype(np.int32)
+    time_s = rng.random(v)
+    charge_s = rng.random(v) * 10.0 ** rng.integers(-3, 2, v)
+    spent0 = rng.random(runs)
+    evals0 = rng.integers(0, 3, runs)
+    kind = np.arange(runs) % 5
+    total = float(charge_s.mean()) * n
+    max_s = np.where((kind == 1) | (kind == 3),
+                     spent0 + rng.random(runs) * total, np.inf)
+    max_e = np.where((kind == 2) | (kind == 3),
+                     evals0 + rng.integers(0, n + 1, runs), 2 ** 62)
+    max_e = np.where(kind == 4, evals0, max_e).astype(np.int64)
+    return (rows, fresh, col, time_s, charge_s, 0.37, spent0, evals0,
+            max_s, max_e)
+
+
+@pytest.mark.parametrize("n", [1, 8, 16, 31, 32, 33, 1000, 10_140])
+@pytest.mark.parametrize("runs", [1, 3, 33, 1024])
+def test_budget_scan_kernel_bit_identical_over_shapes(card, runs, n):
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(card)
+                 if isinstance(a, np.ndarray) else a
+                 for a in _scan_case(runs, n, seed=runs * 7 + n))
+    before = engine_torch.replay.launches
+    got = engine_torch.budget_scan(*args)
+    assert engine_torch.replay.launches == before + 1
+    want = engine_torch.budget_scan_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_packed_commit_rows_bit_identical_to_numpy_over_a_ga_run(card):
+    cache = _cache()
+    runners = [SimulationRunner(cache, Budget(max_evals=150), engine=engine,
+                                device=card if engine == "torch" else None)
+               for engine in ("torch", "numpy")]
+    for runner in runners:
+        get_strategy("genetic_algorithm", maxiter=4).run(
+            cache.space, runner, random.Random(3))
+    ours, ref = runners
+    assert ours.torch_engine().dispatches > 1
+    assert ours.trace == ref.trace
+    assert (ours.budget.spent_seconds, ours.budget.spent_evals,
+            ours.fresh_evals) == (ref.budget.spent_seconds,
+                                  ref.budget.spent_evals, ref.fresh_evals)
+    assert sorted(ours.memo) == sorted(ref.memo)
+
+
+def test_packed_commit_rows_is_one_launch_a_call(card):
+    cache = _cache()
+    runner = SimulationRunner(cache, Budget(max_seconds=1e9),
+                              engine="torch", device=card)
+    engine = runner.torch_engine()
+    rng = np.random.default_rng(4)
+    for size in (1, 20, 32, 3, 100):
+        rows = rng.permutation(cache.space.compiled.n_valid)[:size]
+        before = engine_torch.replay.launches
+        engine.commit_rows(rows)
+        assert engine_torch.replay.launches == before + 1
+    assert engine.blocks().host_in.is_pinned()
+    assert engine.blocks().capacity == 128
+
+
 def test_torch_engine_on_card_matches_numpy_engine(card):
     cache = _cache()
     for name in ("random_search", "genetic_algorithm", "simulated_annealing",
