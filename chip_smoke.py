@@ -74,17 +74,27 @@ Phases (any failure ends the script with a non-zero exit):
      card's name; each recording's per-config time (min, median, max) and
      its fastest and slowest tilings;
   5. the main path, part two: ``replay_many`` of 1024 runs over the GEMM's
-     recording, then ``make_scorer`` + ``evaluate_strategy`` (25 repeats)
-     for random search, the genetic algorithm, simulated annealing and
-     PSO, on the GEMM's recording and on all six (Eq. 3 aggregate), with
-     the torch engine on the card and with the numpy engine; scores must
-     be bit-identical;
+     recording; ``drive_many(fuse="device")`` of random search, the GA
+     and PSO (25 runs each, the methodology's budget) on the card against
+     the numpy ``drive_many``, each runner's trace, memo keys, budget
+     floats and exhaustion bit-identical; then ``make_scorer`` +
+     ``evaluate_strategy`` (25 repeats) for random search, the genetic
+     algorithm, simulated annealing and PSO, on the GEMM's recording and
+     on all six (Eq. 3 aggregate), with the torch engine on the card
+     (device-fused but for SA, which falls back to the host drive) and
+     with the numpy engine; scores must be bit-identical; each report's
+     drive mode, and SA's asks a run and wall an ask on both engines
+     (counted around its ``ask`` here);
   6. the main path, part three: ``exhaustive_hypertune`` of the genetic
      algorithm over its 108-point Table III grid across the six
-     recordings (3 repeats, cut from the paper's 25), torch engine; the
-     best, closest-to-mean and worst hyperconfigurations are rescored with
-     the numpy engine and must be bit-identical; its wall per budget-scan
-     launch.
+     recordings (3 repeats, cut from the paper's 25), torch engine
+     (device-fused), then the same campaign on the numpy engine twice and
+     on the torch engine again (the walls compare in turns): all 108
+     scores of each must be bit-identical; each wall, the torch runs'
+     budget-scan launches, their R and segment lengths and the packed
+     calls' host wall; the best,
+     closest-to-mean and worst hyperconfigurations are rescored with the
+     numpy engine and must be bit-identical.
 
 Before phase 5 every recording is checked to let a tuning run end
 (``ends_check``); phases 5 and 6 each fail past a wall-clock limit.
@@ -99,6 +109,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import random
 import re
 import signal
 import statistics
@@ -191,6 +202,7 @@ COMMIT_BATCHES = 300         # commit_rows calls timed at each length
 SSD_TOL = 3e-3               # tests/test_kernels.py
 STRATEGIES = ("random_search", "genetic_algorithm", "simulated_annealing",
               "pso")
+FUSED_CHECK = ("random_search", "genetic_algorithm", "pso")  # fused drives
 SCORE_LIMIT_S = 300          # phase 5 fails past this wall-clock limit
 HYPERTUNE_REPEATS = 3        # the paper's 25, cut to fit the time limit
 HYPERTUNE_LIMIT_S = 300      # phase 6 fails past this wall-clock limit
@@ -1220,7 +1232,9 @@ def replay_and_score(cache, out: pathlib.Path, device: str, runs: int,
     print(f"  replay_many {runs}x{compiled.n_valid} on the recording: "
           f"{int(got[0].sum())} commits in {wall:.3f} s wall, "
           f"{int(got[6].sum())} runs exhausted; matches the CPU replay")
-    score_both_engines([CacheFile.load(str(out))], device, repeats)
+    loaded = CacheFile.load(str(out))
+    check_fused_drive(loaded, device, repeats)
+    score_both_engines([loaded], device, repeats)
 
 
 def score_both_engines(caches, device: str, repeats: int) -> None:
@@ -1230,6 +1244,7 @@ def score_both_engines(caches, device: str, repeats: int) -> None:
     bit-identical."""
     from repro_torch.core.methodology import evaluate_strategy, make_scorer
     from repro_torch.core.parallel import StrategyFactory
+    from repro_torch.core.strategies import STRATEGIES as REGISTRY
     print(f"  scoring over {', '.join(c.kernel for c in caches)}:")
     for name in STRATEGIES:
         factory = StrategyFactory.create(name, {})
@@ -1237,18 +1252,140 @@ def score_both_engines(caches, device: str, repeats: int) -> None:
         for engine in ("torch", "vectorized"):
             scorers = [make_scorer(c, engine=engine, device=device)
                        for c in caches]
-            reports[engine] = evaluate_strategy(factory, scorers,
-                                                repeats=repeats, seed=0)
+            with AskCounter(REGISTRY[name]) as asks:
+                reports[engine] = evaluate_strategy(factory, scorers,
+                                                    repeats=repeats, seed=0)
             r = reports[engine]
             print(f"  {name:19s} engine {engine:10s} score {r.score!r} "
                   f"({r.fresh_evals} fresh evals, {r.simulated_seconds!r} "
-                  f"simulated s in {r.wall_seconds:.3f} s wall)")
+                  f"simulated s in {r.wall_seconds:.3f} s wall; drive "
+                  f"{r.fuse})")
+            if name == "simulated_annealing":
+                runs = repeats * len(caches)
+                n = max(asks.asks, 1)
+                print(f"  {'':19s} {asks.asks / runs:.1f} asks a run, "
+                      f"{r.wall_seconds / n * 1e3:.5f} ms of wall an ask, "
+                      f"{asks.seconds / n * 1e3:.5f} ms of it inside ask "
+                      f"({asks.asks} asks over {runs} runs)")
         a, b = reports["torch"], reports["vectorized"]
         if (a.score, a.fresh_evals, a.simulated_seconds) != \
                 (b.score, b.fresh_evals, b.simulated_seconds) \
                 or not np.array_equal(a.curve, b.curve) \
                 or a.per_space_score != b.per_space_score:
             fail(f"{name}: torch-engine scores differ from the numpy engine")
+
+
+class AskCounter:
+    """Counts the asks of one strategy class and the host time spent in
+    them, by wrapping the class's ``ask`` while the block runs (the
+    package is not touched)."""
+
+    def __init__(self, cls):
+        self.cls, self.asks, self.seconds = cls, 0, 0.0
+
+    def __enter__(self) -> "AskCounter":
+        self.own = self.cls.__dict__.get("ask")
+        inner = self.cls.ask
+
+        def ask(strategy, state):
+            t0 = time.perf_counter()
+            try:
+                return inner(strategy, state)
+            finally:
+                self.asks += 1
+                self.seconds += time.perf_counter() - t0
+
+        self.cls.ask = ask
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.own is None:
+            del self.cls.ask
+        else:
+            self.cls.ask = self.own
+
+
+class ScanShapes:
+    """Records the (runs, npad) of every packed budget-scan call while the
+    block runs, and the host wall of the calls (copies, launch and
+    synchronisation), by wrapping ``ScanBlocks.run`` (launches still count
+    in ``replay.launches`` alone)."""
+
+    def __enter__(self) -> "ScanShapes":
+        from repro_torch.core.engine_torch import replay as rp
+        self.shapes: list = []
+        self.seconds = 0.0
+        self.inner = inner = rp.ScanBlocks.run
+
+        def run(blocks, npad, tables, mean_charge, runs=1):
+            self.shapes.append((runs, npad))
+            t0 = time.perf_counter()
+            try:
+                return inner(blocks, npad, tables, mean_charge, runs=runs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+
+        rp.ScanBlocks.run = run
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.core.engine_torch import replay as rp
+        rp.ScanBlocks.run = self.inner
+
+    def summary(self) -> str:
+        def hist(values):
+            return ", ".join(f"{v}: {values.count(v)}"
+                             for v in sorted(set(values)))
+        return (f"R a launch {{{hist([r for r, _ in self.shapes])}}}, "
+                f"segment length {{{hist([n for _, n in self.shapes])}}}, "
+                f"{self.seconds:.4f} s of host wall in the packed calls")
+
+
+def runner_state(runner) -> tuple:
+    return (runner.trace, sorted(runner.memo), runner.budget.spent_seconds,
+            runner.budget.spent_evals, runner.fresh_evals)
+
+
+def check_fused_drive(cache, device: str, repeats: int) -> None:
+    """``drive_many(fuse="device")`` on ``device`` against the numpy
+    ``drive_many`` over ``cache`` with the methodology's budget, for every
+    strategy of ``FUSED_CHECK`` (``materialize=True``): each runner's
+    trace, memo keys, budget floats, fresh evaluations and exhaustion
+    bit-identical, and every fused driver on the device path."""
+    from repro_torch.core.budget import Budget
+    from repro_torch.core.driver import SearchDriver, drive_many
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.core.methodology import make_scorer
+    from repro_torch.core.runner import SimulationRunner
+    from repro_torch.core.strategies import get_strategy
+    budget_s = make_scorer(cache, engine="vectorized").budget_s
+    for name in FUSED_CHECK:
+        drivers, walls = {}, {}
+        for engine in ("torch", "numpy"):
+            drivers[engine] = [SearchDriver(
+                get_strategy(name), cache.space,
+                SimulationRunner(cache, Budget(max_seconds=budget_s),
+                                 engine=engine, device=device),
+                random.Random(r)) for r in range(repeats)]
+            before = rp.launches
+            t0 = time.perf_counter()
+            drive_many(drivers[engine],
+                       fuse="device" if engine == "torch" else None)
+            walls[engine] = time.perf_counter() - t0
+            if engine == "torch":
+                made = rp.launches - before
+        same = all(runner_state(a.runner) == runner_state(b.runner)
+                   and a.exhausted == b.exhausted
+                   for a, b in zip(drivers["torch"], drivers["numpy"]))
+        modes = {d.fuse for d in drivers["torch"]}
+        print(f"  drive_many {name}, {repeats} runs on the {cache.kernel} "
+              f"recording: fuse=\"device\" {walls['torch']:.3f} s wall, "
+              f"{made} budget-scan launches, drive {modes}; numpy "
+              f"{walls['numpy']:.3f} s; runner state "
+              f"{'bit-identical' if same else 'DIFFERENT'}")
+        if not same or modes != {"device"}:
+            fail(f"drive_many(fuse='device') of {name} differs from the "
+                 f"numpy drive_many or left the device path ({modes})")
 
 
 def ends_check(caches) -> None:
@@ -1280,29 +1417,70 @@ def time_limit(phase: int, limit_s: int):
 
 def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
     """Exhaustive GA hypertuning (Table III grid) across ``caches`` with
-    the torch engine; the best, closest-to-mean and worst configurations
-    rescored with the numpy engine must be bit-identical. Fails past
-    ``limit_s`` seconds of wall clock. The recordings must have passed
-    ``ends_check``."""
+    the torch engine (device-fused), then the same campaign with the
+    numpy engine, twice, and with the torch engine again: all scores must
+    be bit-identical, and the best, closest-to-mean and worst
+    configurations rescored with the numpy engine too. Prints each wall,
+    the torch runs' budget-scan launches, their R and segment lengths and
+    the host wall of the packed calls. Fails past ``limit_s`` seconds of
+    wall clock. The recordings must have passed ``ends_check``."""
+    from repro_torch.core.engine_torch import replay as rp
     from repro_torch.core.hypertuner import (exhaustive_hypertune,
                                              score_hyperconfig)
     from repro_torch.core.methodology import make_scorer
     scorers = [make_scorer(c, engine="torch", device=device) for c in caches]
+    numpy_scorers = [make_scorer(c, engine="vectorized") for c in caches]
     time_limit(6, limit_s)
     try:
-        t0 = time.perf_counter()
-        res = exhaustive_hypertune("genetic_algorithm", scorers,
-                                   repeats=repeats, seed=0)
-        wall = time.perf_counter() - t0
-        print(f"  {len(res.results)} GA hyperconfigurations x {repeats} "
-              f"repeats x {len(scorers)} spaces in {wall:.1f} s wall "
-              f"({res.simulated_seconds:.1f} simulated s)")
+        walls: dict = {"torch": [], "numpy": []}
+        results = []
+        # the main path's torch run first, then numpy, numpy, torch: the
+        # two engines' walls compare only in turns on one card
+        for engine in ("torch", "numpy", "numpy", "torch"):
+            before = rp.launches
+            t0 = time.perf_counter()
+            with ScanShapes() as shapes:
+                res = exhaustive_hypertune(
+                    "genetic_algorithm",
+                    scorers if engine == "torch" else numpy_scorers,
+                    repeats=repeats, seed=0)
+            wall = time.perf_counter() - t0
+            scans = rp.launches - before
+            walls[engine].append(wall)
+            results.append(res)
+            modes = {r.report.fuse for r in res.results.values()}
+            print(f"  {engine} engine: {len(res.results)} GA "
+                  f"hyperconfigurations x {repeats} repeats x "
+                  f"{len(scorers)} spaces in {wall:.3f} s wall "
+                  f"({res.simulated_seconds:.1f} simulated s), drive "
+                  f"{modes}; {scans} budget-scan launches"
+                  + (f", {wall / scans * 1e3:.4f} ms of wall a launch"
+                     if scans else ""))
+            if engine == "torch":
+                print(f"  torch engine: {shapes.summary()}")
+                if modes != {"device"}:
+                    fail(f"hypertune: the GA campaign left the device path "
+                         f"({modes})")
+        res = results[0]
+        differ = sorted({k for other in results[1:]
+                         for k, r in res.results.items()
+                         if r.score != other.results[k].score
+                         or not np.array_equal(
+                             r.report.curve, other.results[k].report.curve)})
+        print(f"  torch / numpy: {sum(walls['torch']):.3f} s against "
+              f"{sum(walls['numpy']):.3f} s over two runs each "
+              f"({sum(walls['torch']) / sum(walls['numpy']):.3f}); "
+              f"{len(res.results) - len(differ)} of {len(res.results)} "
+              f"scores bit-identical across the four runs")
+        if differ or any(r.results.keys() != res.results.keys()
+                         for r in results):
+            fail(f"hypertune: {len(differ)} hyperconfigurations score "
+                 f"differently with the numpy engine")
         best, avg = res.best, res.closest_to_mean()
         rel = (best.score - avg.score) / max(abs(avg.score), 1e-2)
         print(f"  optimal vs average config: {best.score:+.4f} vs "
               f"{avg.score:+.4f} ({100*rel:+.1f}%; paper Sec. IV-B reports "
               f"+94.8% on average)")
-        numpy_scorers = [make_scorer(c, engine="vectorized") for c in caches]
         for label, r in (("best", best), ("closest to mean", avg),
                          ("worst", res.worst)):
             rep = score_hyperconfig("genetic_algorithm", r.hyperparams,
@@ -1401,12 +1579,8 @@ def main() -> int:
     print(f"[6] main path: exhaustive GA hypertuning across the "
           f"{len(loaded)} recordings")
     t0 = time.perf_counter()
-    scans = rp.launches
     hypertune(loaded, device, HYPERTUNE_REPEATS, HYPERTUNE_LIMIT_S)
-    wall = time.perf_counter() - t0
-    scans = rp.launches - scans
-    print(f"  [phase 6: {wall:.1f} s; {scans} budget-scan launches, "
-          f"{wall / max(scans, 1) * 1e3:.4f} ms of wall a launch]")
+    print(f"  [phase 6: {time.perf_counter() - t0:.1f} s]")
     launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
     launches["budget_scan"] = rp.launches
     print(f"  launches on the main path: {launches}")

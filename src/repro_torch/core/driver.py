@@ -30,22 +30,46 @@ kernel evaluation is repeated — and lands it in the exact mid-run state.
 
 Port copy of ``src/repro/core/driver.py``
 and kept as its own copy: the port imports nothing of ``repro``. Changes:
-``drive_many(fuse="device")`` (device-fused campaigns) raises
-``NotImplementedError`` until its slice is ported; and the reference's
-thread bridge for legacy ``_optimize`` loops (``ThreadBridgeState``, its
-deprecation warning) and its ``FuseFallbackNotice`` are left out until a
-slice ports a strategy that needs them (the port's registry holds only
+``drive_many(fuse="device")`` drives eligible runs through
+``engine_torch.drive_fused`` on the torch engine (the reference's jax
+engine); and the reference's thread bridge for legacy ``_optimize`` loops
+(``ThreadBridgeState``, its deprecation warning) is left out until a
+slice ports a strategy that needs it (the port's registry holds only
 ask/tell-native strategies).
 """
 from __future__ import annotations
 
 import random
+import warnings
 from typing import Callable, Sequence
 
 from .budget import BudgetExhausted
 from .runner import Observation, Runner, run_fused
 from .searchspace import SearchSpace
 from .tunable import Config
+
+
+class FuseFallbackNotice(UserWarning):
+    """A fused drive (device or host) fell back to a slower mode for some
+    strategy. Informational, not an error: the fallback is bit-identical,
+    only slower — but campaigns that silently degrade from the device path
+    to sequential stepping cost orders of magnitude more wall time, so the
+    reason is surfaced once per (strategy, reason) instead of never."""
+
+
+_fuse_noticed: set = set()
+
+
+def warn_fuse_fallback(strategy_name: str, reason: str, mode: str) -> None:
+    """One-time (per process, per (strategy, reason)) notice that a fused
+    drive degraded to ``mode`` (``"host"`` or ``"sequential"``)."""
+    key = (strategy_name, reason)
+    if key in _fuse_noticed:
+        return
+    _fuse_noticed.add(key)
+    warnings.warn(
+        f"{strategy_name}: fused drive falling back to {mode} stepping "
+        f"({reason})", FuseFallbackNotice, stacklevel=3)
 
 
 # --------------------------------------------------------------------- state
@@ -270,16 +294,21 @@ def drive_many(drivers: Sequence[SearchDriver],
     had none).
 
     ``fuse`` selects the drive mechanism: ``"host"`` (default) is the
-    per-round interleave above; ``"device"`` (the reference's
-    device-resident campaign executor) is not ported yet and raises
-    ``NotImplementedError``. The chosen mode is recorded per driver as
-    ``driver.fuse``.
+    per-round interleave above; ``"device"`` routes eligible runs — array-
+    native strategies on torch-engine ``SimulationRunner``s — through the
+    fused campaign executor (``engine_torch.campaign``: whole runs a
+    budget-scan launch, bit-identical committed state) and drives the rest
+    on the host after a one-time ``FuseFallbackNotice`` naming the
+    strategy and reason. With no ``engine`` named, ``"device"`` switches
+    every ``SimulationRunner`` to ``"torch"``, so without CUDA a runner
+    that was not given ``device="cpu"`` raises. The chosen mode is
+    recorded per driver as ``driver.fuse``.
     """
     if fuse not in (None, "host", "device"):
         raise ValueError(f"unknown fuse mode {fuse!r}; "
                          f"expected 'host' or 'device'")
-    if fuse == "device":
-        raise NotImplementedError("fused device campaigns: later slice")
+    if engine is None and fuse == "device":
+        engine = "torch"  # the device path is the torch engine's
     if engine is not None:
         from ..cuda import resolve_device
         from .runner import SimulationRunner
@@ -295,6 +324,22 @@ def drive_many(drivers: Sequence[SearchDriver],
                     r.device = resolve_device(r.device)
                 r.engine = engine
     host_drivers: Sequence[SearchDriver] = drivers
+    if fuse == "device":
+        from . import engine_torch
+        fused: list[SearchDriver] = []
+        host_drivers = []
+        for d in drivers:
+            reason = engine_torch.fuse_reason(d)
+            if reason is None:
+                d.fuse = "device"
+                fused.append(d)
+            else:
+                warn_fuse_fallback(
+                    getattr(d.strategy, "name", type(d.strategy).__name__),
+                    reason, "host")
+                host_drivers.append(d)
+        if fused:
+            engine_torch.drive_fused(fused)
     for d in host_drivers:
         d.fuse = "host"
     active = [d for d in host_drivers if not d.state.finished]

@@ -19,8 +19,8 @@ Batches are padded to power-of-two lengths, as in the reference.
 Every batch with a fresh row dispatches, single rows included. A
 ``ReplayEngine`` call packs its inputs into one block (``ScanLayout``), so
 it costs one copy to the card, one launch, one copy back and one
-synchronisation (``ScanBlocks``); fused campaigns, which remove the calls,
-are later work.
+synchronisation (``ScanBlocks``). A fused campaign (``campaign.py``) makes
+the same packed call with all of a group's runs at once.
 """
 from __future__ import annotations
 
@@ -236,57 +236,61 @@ class ScanLayout:
 
 
 class ScanBlocks:
-    """One runner's packed blocks on ``device``: a host staging block and a
-    device block for each direction, allocated at first use and grown to
-    the largest ``npad`` asked for. On the card the host blocks are pinned
+    """Packed call blocks on ``device``: a host staging block and a device
+    block for each direction, allocated at first use and grown to the
+    largest byte size a call asked for. A call lays out ``runs`` runs of
+    ``npad`` entries in them (``ScanLayout``; each layout is made once and
+    kept until the blocks grow). On the card the host blocks are pinned
     and a call is one ``copy_(non_blocking=True)`` in, one launch on
-    pointers into the device blocks, one copy out and one synchronisation.
-    On the CPU the same blocks are ordinary tensors, and the plain version
-    reads and writes the device blocks' views. Never pickled."""
-
-    RUNS = 1  # a runner replays one run
+    pointers into the device blocks, one copy out and one
+    synchronisation. On the CPU the same blocks are ordinary tensors, and
+    the plain version reads and writes the device blocks' views. A
+    ``ReplayEngine`` calls with one run; a fused campaign
+    (``campaign.py``) with a group's runs. Never pickled."""
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self.capacity = 0  # the npad the blocks were laid out for
-        self._calls: dict = {}  # npad -> that layout's views and pointers
+        self.capacity = 0  # the largest npad laid out so far
+        self.nbytes = {"in": 0, "out": 0}  # the blocks' sizes
+        self._calls: dict = {}  # (runs, npad) -> its views and pointers
 
-    def _grow(self, npad: int) -> None:
-        layout = ScanLayout(self.RUNS, npad)
+    def _grow(self, layout: ScanLayout) -> None:
         pin = self.device.type == "cuda"
+        self.nbytes = {k: max(v, layout.nbytes[k])
+                       for k, v in self.nbytes.items()}
 
         def block(nbytes, device, pinned=False):
             return torch.empty(nbytes, dtype=torch.uint8, device=device,
                                pin_memory=pinned)
 
-        self.host_in = block(layout.nbytes["in"], "cpu", pin)
-        self.dev_in = block(layout.nbytes["in"], self.device)
-        self.dev_out = block(layout.nbytes["out"], self.device)
-        self.host_out = block(layout.nbytes["out"], "cpu", pin)
-        self.capacity = npad
+        self.host_in = block(self.nbytes["in"], "cpu", pin)
+        self.dev_in = block(self.nbytes["in"], self.device)
+        self.dev_out = block(self.nbytes["out"], self.device)
+        self.host_out = block(self.nbytes["out"], "cpu", pin)
         self._calls = {}
 
-    def call(self, npad: int) -> tuple:
+    def call(self, npad: int, runs: int = 1) -> tuple:
         """``(inputs, outputs)``: numpy views of the host blocks laid out
-        for ``npad`` entries a run (``ScanLayout``'s fields by name). Write
-        the inputs, then ``run``; the outputs hold its results until the
-        next call."""
-        if npad > self.capacity:
-            self._grow(npad)
-        c = self._calls.get(npad)
+        for ``runs`` runs of ``npad`` entries (``ScanLayout``'s fields by
+        name). Write the inputs, then ``run``; the outputs hold its
+        results until the next call."""
+        c = self._calls.get((runs, npad))
         if c is None:
-            c = self._calls[npad] = self._lay_out(npad)
+            layout = ScanLayout(runs, npad)
+            if any(layout.nbytes[k] > v for k, v in self.nbytes.items()):
+                self._grow(layout)
+            c = self._calls[runs, npad] = self._lay_out(layout)
+            self.capacity = max(self.capacity, npad)
         return c["host_in"], c["host_out"]
 
-    def device_views(self, npad: int) -> tuple:
+    def device_views(self, npad: int, runs: int = 1) -> tuple:
         """``(inputs, outputs)``: the device blocks' tensor views laid out
-        for ``npad``, as the last ``run`` at that length read and wrote
-        them."""
-        c = self._calls[npad]
+        for ``runs`` runs of ``npad``, as the last ``run`` of that layout
+        read and wrote them."""
+        c = self._calls[runs, npad]
         return c["dev_in"], c["dev_out"]
 
-    def _lay_out(self, npad: int) -> dict:
-        layout = ScanLayout(self.RUNS, npad)
+    def _lay_out(self, layout: ScanLayout) -> dict:
         nin, nout = layout.nbytes["in"], layout.nbytes["out"]
         dev_in = layout.views(self.dev_in, IN_FIELDS)
         dev_out = layout.views(self.dev_out, OUT_FIELDS)
@@ -300,11 +304,11 @@ class ScanBlocks:
                 "in_ptrs": {k: v.data_ptr() for k, v in dev_in.items()},
                 "out_ptrs": {k: v.data_ptr() for k, v in dev_out.items()}}
 
-    def run(self, npad: int, tables: ReplayTables,
-            mean_charge: float) -> None:
-        """Resolve the inputs written into ``call(npad)``'s views; the
-        results land in its output views."""
-        c = self._calls[npad]
+    def run(self, npad: int, tables: ReplayTables, mean_charge: float,
+            runs: int = 1) -> None:
+        """Resolve the inputs written into ``call(npad, runs)``'s views;
+        the results land in its output views."""
+        c = self._calls[runs, npad]
         dst, src = c["copy_in"]
         dst.copy_(src, non_blocking=True)
         if self.device.type == "cpu":
@@ -319,7 +323,7 @@ class ScanBlocks:
             _launch(i["rows"], i["fresh"], tables.col_of_row.data_ptr(),
                     tables.time_s.data_ptr(), tables.charge_s.data_ptr(),
                     mean_charge, i["spent0"], i["evals0"], i["max_s"],
-                    i["max_e"], self.RUNS, npad,
+                    i["max_e"], runs, npad,
                     *(o[name] for name in OUT_ORDER), self.device)
         dst, src = c["copy_out"]
         dst.copy_(src, non_blocking=True)

@@ -24,11 +24,12 @@ batch committed through ``core.engine_torch`` on the scorer's ``device``);
 ``"torch"`` is the default engine, so a scorer replays on the card unless
 the caller asks for the CPU (``device="cpu"``) or a host engine
 (``"vectorized"``/``"scalar"``, the parity oracle); the device-fused drive
-(``run_repeats_device``) is not ported yet, so ``drive="device"`` raises
-``NotImplementedError`` and ``drive="auto"`` fuses on the host for every
-engine. ``run_repeats_fused`` drives ask/tell strategies only (the port's
-registry holds no other kind), so the reference's sequential fallbacks for
-duck-typed and thread-bridged strategies are left out.
+(``run_repeats_device``) runs its runners on the torch engine on the
+scorer's device and has no "engine unavailable" fallback (without CUDA a
+scorer not on ``device="cpu"`` raises instead). ``run_repeats_fused``
+drives ask/tell strategies only (the port's registry holds no other kind),
+so the reference's sequential fallbacks for duck-typed and thread-bridged
+strategies are left out.
 """
 from __future__ import annotations
 
@@ -346,10 +347,10 @@ class AggregateReport:
     fresh_evals: int = 0
     wall_seconds: float = 0.0
     simulated_seconds: float = 0.0
-    # how the in-process grid executed: "host" (interleaved drive_many),
-    # "sequential" (one cell at a time), or "mixed" when spaces took
-    # different paths. Purely informational — scores are bit-identical
-    # across all of them.
+    # how the in-process grid executed: "device" (fused campaign through
+    # engine_torch), "host" (interleaved drive_many), "sequential" (one
+    # cell at a time), or "mixed" when spaces took different paths.
+    # Purely informational — scores are bit-identical across all of them.
     fuse: str = "sequential"
 
 
@@ -424,6 +425,57 @@ def run_repeats_fused(scorer: SpaceScorer,
             for d in drivers]
 
 
+def run_repeats_device(scorer: SpaceScorer,
+                       make_strategy: Callable[[], Strategy],
+                       repeats: int, seed: int, times: np.ndarray,
+                       baseline: np.ndarray
+                       ) -> "list[RepeatResult] | None":
+    """All of one space's repeats as one fused campaign
+    (``engine_torch.campaign``): the strategies' ask/tell trajectories step
+    on the host against a value table while every run's budget-replay-
+    commit resolves in a handful of budget-scan launches on the scorer's
+    device. Curves and scores are bit-identical to the sequential/host
+    paths (the trajectory is budget-independent; see the campaign module
+    docstring).
+
+    Returns ``None`` — after a one-time ``FuseFallbackNotice`` — when the
+    grid is not device-fusable (strategy outside the array-native
+    allowlist, empty cache); the caller then takes the host drive.
+    """
+    from . import engine_torch
+    from .driver import SearchDriver, warn_fuse_fallback
+    probe = make_strategy()
+    name = getattr(probe, "name", type(probe).__name__)
+    if name not in engine_torch.FUSED_STRATEGIES:
+        warn_fuse_fallback(
+            name, f"strategy {name!r} is not array-native "
+            "(trajectory not host-replayable from values alone)", "host")
+        return None
+    t0 = time.perf_counter()
+    drivers = []
+    for r in range(repeats):
+        runner = SimulationRunner(scorer.cache,
+                                  Budget(max_seconds=scorer.budget_s),
+                                  engine="torch", device=scorer.device)
+        drivers.append(SearchDriver(make_strategy(), scorer.cache.space,
+                                    runner, _repeat_rng(scorer, r, seed)))
+    reason = engine_torch.fuse_reason(drivers[0])
+    if reason is not None:
+        for d in drivers:
+            d.state.close()
+        warn_fuse_fallback(name, reason, "host")
+        return None
+    runs = engine_torch.drive_fused(drivers, materialize=False)
+    wall_share = (time.perf_counter() - t0) / max(1, repeats)
+    # scores straight from the committed improvement arrays: no Python
+    # trace materializes on the scores-only path (score_improvements is
+    # bit-identical to score_trace on the equivalent trace)
+    return [RepeatResult(scorer.score_improvements(*run.improvements(),
+                                                   times, baseline),
+                         run.fresh_evals, wall_share, run.spent)
+            for run in runs]
+
+
 def _repeat_cell(ctx: tuple, si: int, r: int) -> RepeatResult:
     """Executor task: ``ctx`` is the campaign-constant context shipped once
     per worker (see ``CampaignExecutor.map(shared=...)``)."""
@@ -446,21 +498,21 @@ def evaluate_strategy(make_strategy: Callable[[], Strategy],
     (space × repeat) grid is fanned out and reduced in fixed space-major
     order, so the aggregate is bit-identical to the serial loop.
 
-    ``drive`` selects how the in-process grid executes: ``"fused"``
-    drives each space's repeats as interleaved host ask/tell runs with
-    cross-run batch fusion (``run_repeats_fused``), ``"sequential"`` runs
-    one cell at a time (``run_repeat``), and ``"auto"`` (default) fuses
-    in-process grids on the host, whatever the engine (with
-    ``engine="torch"`` every fused batch is still committed through the
-    budget-scan kernel). ``"device"`` (device-resident fused campaigns)
-    is not ported yet and raises ``NotImplementedError``. Scores are
-    bit-identical across all of them — the drive only changes wall time;
-    the chosen mode is surfaced as ``AggregateReport.fuse``.
+    ``drive`` selects how the in-process grid executes: ``"device"``
+    drives each space's repeats as one fused campaign through the
+    budget-scan kernel (``run_repeats_device``; falls back with a
+    ``FuseFallbackNotice`` when ineligible), ``"fused"`` drives them as
+    interleaved host ask/tell runs with cross-run batch fusion
+    (``run_repeats_fused``), ``"sequential"`` runs one cell at a time
+    (``run_repeat``), and ``"auto"`` (default) fuses in-process grids on
+    the host — on the device when the scorer's engine is ``"torch"``.
+    ``"device"`` runs on the scorer's device, the card unless it is
+    ``"cpu"``. Scores are bit-identical across all of them — the drive
+    only changes wall time; the chosen mode is surfaced as
+    ``AggregateReport.fuse``.
     """
     if drive not in ("auto", "device", "fused", "sequential"):
         raise ValueError(f"unknown drive mode {drive!r}")
-    if drive == "device":
-        raise NotImplementedError("fused device campaigns: later slice")
     names = [s.name for s in scorers]
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate space names in scorers: {names}")
@@ -483,11 +535,20 @@ def evaluate_strategy(make_strategy: Callable[[], Strategy],
         modes.append("sequential")
     else:
         for si, scorer in enumerate(scorers):
-            if drive != "sequential" and scorer.engine != "scalar":
+            res: "list[RepeatResult] | None" = None
+            mode = "sequential"
+            if scorer.engine != "scalar" and (
+                    drive == "device"
+                    or (drive == "auto" and scorer.engine == "torch")):
+                res = run_repeats_device(scorer, make_strategy, repeats,
+                                         seed, times[si], baselines[si])
+                mode = "device"
+            if res is None and drive != "sequential" \
+                    and scorer.engine != "scalar":
                 res = run_repeats_fused(scorer, make_strategy, repeats, seed,
                                         times[si], baselines[si])
                 mode = "host"
-            else:
+            if res is None:
                 res = [run_repeat(scorer, make_strategy, r, seed, times[si],
                                   baselines[si]) for r in range(repeats)]
                 mode = "sequential"

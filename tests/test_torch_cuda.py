@@ -15,8 +15,8 @@ dedispersion's channel-order ``__fadd_rn``, as the plain versions
 compute);
 flash attention
 ``RTOL[dtype]`` (its card command: ``-k flash``) and the SSD scan 3e-3, tests/test_kernels.py's (online
-softmax and chunked sums reorder the adds); the budget scan and the replay
-engine none — bit-identical.
+softmax and chunked sums reorder the adds); the budget scan, the replay
+engine and fused campaigns none — bit-identical.
 """
 import dataclasses
 import random
@@ -28,6 +28,8 @@ import torch
 from repro_torch.core import engine_torch
 from repro_torch.core.budget import Budget
 from repro_torch.core.cache import CachedResult, CacheFile
+from repro_torch.core.driver import SearchDriver
+from repro_torch.core.engine_torch import campaign
 from repro_torch.core.methodology import evaluate_strategy, make_scorer
 from repro_torch.core.runner import SimulationRunner
 from repro_torch.core.searchspace import SearchSpace
@@ -664,3 +666,58 @@ def test_ga_generations_dispatch_on_card(card):
         cache.space, runner, random.Random(0))
     assert runner.torch_engine().dispatches > 1
     assert runner.device == card
+
+
+def _fused_drivers(cache, device: str) -> list:
+    """Random search (whole space and an eval cap), GA and PSO with caps
+    that cut mid-generation, each on its own runner on ``device``."""
+    total = sum(r.charge_s for r in cache.results.values())
+    cases = [("random_search", {}, {"max_seconds": 1e9}),
+             ("random_search", {}, {"max_evals": 37}),
+             ("genetic_algorithm", {"popsize": 20},
+              {"max_seconds": total * 0.4}),
+             ("genetic_algorithm", {"popsize": 30}, {"max_evals": 137}),
+             ("pso", {"popsize": 20}, {"max_seconds": total * 0.3}),
+             ("pso", {"popsize": 30}, {"max_evals": 100})]
+    return [SearchDriver(get_strategy(name, **hp), cache.space,
+                         SimulationRunner(cache, Budget(**bk), engine="torch",
+                                          device=device), random.Random(i))
+            for i, (name, hp, bk) in enumerate(cases)]
+
+
+def test_drive_fused_on_card_bit_identical_to_cpu(card):
+    cache = _cache()
+    got, want = _fused_drivers(cache, card), _fused_drivers(cache, "cpu")
+    before = engine_torch.replay.launches
+    engine_torch.drive_fused(got)
+    assert engine_torch.replay.launches > before
+    engine_torch.drive_fused(want)
+    for a, b in zip(got, want):
+        assert a.runner.trace == b.runner.trace
+        assert (a.runner.budget.spent_seconds, a.runner.budget.spent_evals,
+                a.runner.fresh_evals, a.exhausted) == \
+            (b.runner.budget.spent_seconds, b.runner.budget.spent_evals,
+             b.runner.fresh_evals, b.exhausted)
+        assert sorted(a.runner.memo) == sorted(b.runner.memo)
+
+
+@pytest.mark.parametrize("runs", [4, 32])
+def test_fused_segment_is_one_launch(card, runs):
+    """Random search asks its whole space at once: with no cap each run is
+    one segment, so the group is one launch at R = ``runs`` (padded as the
+    reference pads, to at least 8)."""
+    cache = _cache()
+    drivers = [SearchDriver(get_strategy("random_search"), cache.space,
+                            SimulationRunner(cache, Budget(max_seconds=1e9),
+                                             engine="torch", device=card),
+                            random.Random(i)) for i in range(runs)]
+    runs_ = [campaign.FusedRun(d) for d in drivers]
+    before = engine_torch.replay.launches
+    made = campaign._drive_group(runs_, cache.columns, cache.space.compiled)
+    assert made == 1
+    assert engine_torch.replay.launches == before + 1
+    assert all(r.fresh_evals == cache.space.compiled.n_valid for r in runs_)
+    blocks = campaign.scan_blocks(card)
+    assert blocks.host_in.is_pinned()
+    assert (max(runs, 8), engine_torch.replay._pad_len(
+        cache.space.compiled.n_valid)) in blocks._calls

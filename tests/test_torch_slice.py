@@ -67,7 +67,8 @@ def test_scores_equal_reference_exactly(cache_path, name, engine):
     assert ours.per_space_score == ref.per_space_score
     assert (ours.fresh_evals, ours.simulated_seconds) == \
         (ref.fresh_evals, ref.simulated_seconds)
-    assert ours.fuse == ("sequential" if engine == "scalar" else "host")
+    assert ours.fuse == {"torch": "device", "vectorized": "host",
+                         "scalar": "sequential"}[engine]
 
 
 def test_torch_engine_dispatches_every_fresh_batch(cache_path):
@@ -97,13 +98,15 @@ def test_drive_many_engine_switch_and_device_fuse(cache_path):
     drive_many(b, engine="torch")
     assert [d.runner.trace for d in a] == [d.runner.trace for d in b]
     assert all(d.runner.engine == "torch" for d in b)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        drive_many(drivers("numpy"), fuse="device")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        methodology.evaluate_strategy(
-            lambda: get_strategy("random_search"),
-            [methodology.make_scorer(cache, device="cpu")], repeats=1,
-            drive="device")
+    c = drivers("numpy")
+    drive_many(c, fuse="device")
+    assert all(d.fuse == "device" and d.runner.engine == "torch" for d in c)
+    assert [d.runner.trace for d in a] == [d.runner.trace for d in c]
+    report = methodology.evaluate_strategy(
+        lambda: get_strategy("random_search"),
+        [methodology.make_scorer(cache, device="cpu")], repeats=1,
+        drive="device")
+    assert report.fuse == "device"
 
 
 def test_registries_hold_this_slice_only():
