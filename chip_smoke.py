@@ -73,18 +73,25 @@ Phases (any failure ends the script with a non-zero exit):
      ``record_cache``, shard -> merge -> a cache file labelled with the
      card's name; each recording's per-config time (min, median, max) and
      its fastest and slowest tilings;
-  5. the main path, part two: ``replay_many`` of 1024 runs over the GEMM's
-     recording; ``drive_many(fuse="device")`` of random search, the GA
-     and PSO (25 runs each, the methodology's budget) on the card against
-     the numpy ``drive_many``, each runner's trace, memo keys, budget
-     floats and exhaustion bit-identical; then ``make_scorer`` +
-     ``evaluate_strategy`` (25 repeats) for random search, the genetic
-     algorithm, simulated annealing and PSO, on the GEMM's recording and
-     on all six (Eq. 3 aggregate), with the torch engine on the card
-     (device-fused but for SA, which falls back to the host drive) and
-     with the numpy engine; scores must be bit-identical; each report's
-     drive mode, and SA's asks a run and wall an ask on both engines
-     (counted around its ``ask`` here);
+  5. the main path, part two: the guard (``cap_guard``: every strategy
+     that is not device-fused driven over each recording on the numpy
+     engine, its 25 runs as the methodology seeds them; a recording on
+     which a run asks 100,000 times in a row with no fresh config is
+     left out of that strategy's scoring and printed as that fault);
+     ``replay_many`` of 1024 runs over the GEMM's recording;
+     ``drive_many(fuse="device")`` of random search, the GA, PSO and
+     differential evolution (25 runs each, the methodology's budget) on
+     the card against the numpy ``drive_many``, each runner's trace, memo
+     keys, budget floats and exhaustion bit-identical; then
+     ``make_scorer`` + ``evaluate_strategy`` (25 repeats) for all nine
+     strategies, on the GEMM's recording and on all six (Eq. 3
+     aggregate), with the torch engine on the card (device-fused for
+     random search, the GA, PSO and DE; the host drive for SA, basin
+     hopping, greedy ILS and MLS; sequential for dual annealing) and with
+     the numpy engine; scores must be bit-identical; each report's drive
+     mode and budget-scan launches (a strategy that committed a fresh
+     row without a launch fails), and the host-driven strategies' asks a
+     run and wall an ask on both engines (counted around ``ask`` here);
   6. the main path, part three: ``exhaustive_hypertune`` of the genetic
      algorithm over its 108-point Table III grid across the six
      recordings (3 repeats, cut from the paper's 25), torch engine
@@ -94,10 +101,16 @@ Phases (any failure ends the script with a non-zero exit):
      budget-scan launches, their R and segment lengths and the packed
      calls' host wall; the best,
      closest-to-mean and worst hyperconfigurations are rescored with the
-     numpy engine and must be bit-identical.
+     numpy engine and must be bit-identical; then the paper's
+     meta-strategy path (Eq. 4): ``meta_hypertune`` of the GA over its
+     extended grid with dual annealing as the meta-strategy (through the
+     thread bridge; 50 configurations, 3 repeats, journaled), torch
+     engine then numpy engine, every score and the best configuration
+     bit-identical, no bridge thread left.
 
 Before phase 5 every recording is checked to let a tuning run end
-(``ends_check``); phases 5 and 6 each fail past a wall-clock limit.
+(``ends_check``); phases 5 and 6 each fail past a wall-clock limit. The
+budget-scan launches of phases 5-6 are printed by strategy and campaign.
 
 Kernel launch counters are set to 0 just before phase 4 and read just
 after phase 6; each kernel must have launched there. The line before the
@@ -115,6 +128,8 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -201,11 +216,15 @@ SCAN_R1_LENGTHS = (16, 32)
 COMMIT_BATCHES = 300         # commit_rows calls timed at each length
 SSD_TOL = 3e-3               # tests/test_kernels.py
 STRATEGIES = ("random_search", "genetic_algorithm", "simulated_annealing",
-              "pso")
-FUSED_CHECK = ("random_search", "genetic_algorithm", "pso")  # fused drives
+              "pso", "dual_annealing", "differential_evolution",
+              "basin_hopping", "greedy_ils", "mls")  # phase 5, all nine
+FUSED_CHECK = ("random_search", "genetic_algorithm", "pso",
+               "differential_evolution")  # fused drives checked in phase 5
+GUARD_ASKS = 100_000         # asks in a row with no fresh config: endless
 SCORE_LIMIT_S = 300          # phase 5 fails past this wall-clock limit
 HYPERTUNE_REPEATS = 3        # the paper's 25, cut to fit the time limit
 HYPERTUNE_LIMIT_S = 300      # phase 6 fails past this wall-clock limit
+META_EVALS = 50              # phase 6's meta campaign: GA configs scored
 
 
 def fail(msg: str) -> None:
@@ -1211,9 +1230,11 @@ def record(out_dir: pathlib.Path, device: str, name: str, problem: dict,
 
 
 def replay_and_score(cache, out: pathlib.Path, device: str, runs: int,
-                     repeats: int) -> None:
+                     repeats: int, left_out: dict) -> dict:
     """``replay_many`` over the recorded cache, then the methodology with
-    the torch engine on ``device`` and with the numpy engine."""
+    the torch engine on ``device`` and with the numpy engine (``left_out``
+    from ``cap_guard``). Returns the budget-scan launches of the fused
+    drives and the scoring, by strategy."""
     from repro_torch.core.cache import CacheFile
     from repro_torch.core.engine_torch import replay_many
     compiled, cols = cache.space.compiled, cache.columns
@@ -1233,35 +1254,62 @@ def replay_and_score(cache, out: pathlib.Path, device: str, runs: int,
           f"{int(got[0].sum())} commits in {wall:.3f} s wall, "
           f"{int(got[6].sum())} runs exhausted; matches the CPU replay")
     loaded = CacheFile.load(str(out))
-    check_fused_drive(loaded, device, repeats)
-    score_both_engines([loaded], device, repeats)
+    made = check_fused_drive(loaded, device, repeats)
+    for name, n in score_both_engines([loaded], device, repeats,
+                                      left_out).items():
+        made[name] = made.get(name, 0) + n
+    return made
 
 
-def score_both_engines(caches, device: str, repeats: int) -> None:
+def score_both_engines(caches, device: str, repeats: int,
+                       left_out: dict) -> dict:
     """``evaluate_strategy`` of every strategy of ``STRATEGIES`` over
     ``caches`` (Eq. 3 aggregate) with the torch engine on ``device`` and
     with the numpy engine: scores, curves and charges must be
-    bit-identical."""
+    bit-identical, and the torch scoring of a strategy that committed a
+    fresh row must have launched the budget scan. A recording in
+    ``left_out[name]`` (``cap_guard``) is not scored for ``name``. Returns
+    each strategy's budget-scan launches on the torch engine."""
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.core.engine_torch.campaign import FUSED_STRATEGIES
     from repro_torch.core.methodology import evaluate_strategy, make_scorer
     from repro_torch.core.parallel import StrategyFactory
     from repro_torch.core.strategies import STRATEGIES as REGISTRY
     print(f"  scoring over {', '.join(c.kernel for c in caches)}:")
+    launches = {}
     for name in STRATEGIES:
+        spaces = [c for c in caches if c.kernel not in left_out.get(name, ())]
+        if len(spaces) < len(caches):
+            print(f"  {name:19s} leaves out "
+                  f"{sorted(c.kernel for c in caches if c not in spaces)} "
+                  f"(guard)")
+        if not spaces:
+            continue
         factory = StrategyFactory.create(name, {})
         reports = {}
         for engine in ("torch", "vectorized"):
             scorers = [make_scorer(c, engine=engine, device=device)
-                       for c in caches]
+                       for c in spaces]
+            before = rp.launches
             with AskCounter(REGISTRY[name]) as asks:
                 reports[engine] = evaluate_strategy(factory, scorers,
                                                     repeats=repeats, seed=0)
+            made = rp.launches - before
             r = reports[engine]
             print(f"  {name:19s} engine {engine:10s} score {r.score!r} "
                   f"({r.fresh_evals} fresh evals, {r.simulated_seconds!r} "
                   f"simulated s in {r.wall_seconds:.3f} s wall; drive "
-                  f"{r.fuse})")
-            if name == "simulated_annealing":
-                runs = repeats * len(caches)
+                  f"{r.fuse}"
+                  + (f"; {made} budget-scan launches)" if engine == "torch"
+                     else ")"))
+            if engine == "torch":
+                launches[name] = made
+                if r.fresh_evals and not made:
+                    fail(f"{name}: the torch scoring committed "
+                         f"{r.fresh_evals} fresh rows without a budget-scan "
+                         f"launch")
+            if name not in FUSED_STRATEGIES and asks.asks:
+                runs = repeats * len(spaces)
                 n = max(asks.asks, 1)
                 print(f"  {'':19s} {asks.asks / runs:.1f} asks a run, "
                       f"{r.wall_seconds / n * 1e3:.5f} ms of wall an ask, "
@@ -1273,6 +1321,70 @@ def score_both_engines(caches, device: str, repeats: int) -> None:
                 or not np.array_equal(a.curve, b.curve) \
                 or a.per_space_score != b.per_space_score:
             fail(f"{name}: torch-engine scores differ from the numpy engine")
+    return launches
+
+
+def cap_guard(caches, repeats: int) -> dict:
+    """Drive the methodology's runs of every strategy that is not
+    device-fused over each recording on the numpy engine, as
+    ``evaluate_strategy`` seeds them, until each ends or asks
+    ``GUARD_ASKS`` times in a row without a fresh config. A run ends only
+    at a fresh ask once its budget is spent, so a strategy that stops
+    finding fresh configs revisits forever (basin hopping on a small whole
+    space, ROADMAP Queue 3). The cap counts asks since the last fresh
+    config, not asks a run: on a live GEMM recording of 512 configs
+    simulated annealing asked up to 107,607 times in one run (56,444 on
+    average), at most 8,273 in a row without a fresh one. Returns
+    ``{strategy: {kernel, ...}}``, the recordings on which a run reached
+    the cap (the first such run ends that recording's drive); they are
+    left out of that strategy's scoring, and each is printed as that
+    fault, not as a failure."""
+    from repro_torch.core.budget import Budget
+    from repro_torch.core.driver import SearchDriver
+    from repro_torch.core.engine_torch.campaign import FUSED_STRATEGIES
+    from repro_torch.core.methodology import _repeat_rng, make_scorer
+    from repro_torch.core.runner import SimulationRunner
+    from repro_torch.core.strategies import get_strategy
+    scorers = [make_scorer(c, engine="vectorized") for c in caches]
+    left_out: dict = {}
+    for name in STRATEGIES:
+        if name in FUSED_STRATEGIES:
+            continue
+        t0 = time.perf_counter()
+        most = longest = 0
+        for s in scorers:
+            for r in range(repeats):
+                runner = SimulationRunner(s.cache,
+                                          Budget(max_seconds=s.budget_s),
+                                          engine="numpy")
+                d = SearchDriver(get_strategy(name), s.cache.space, runner,
+                                 _repeat_rng(s, r, 0))
+                asks = stale = fresh = 0
+                try:
+                    while stale < GUARD_ASKS and d.step():
+                        asks += 1
+                        stale = 0 if runner.fresh_evals > fresh else stale + 1
+                        fresh = runner.fresh_evals
+                        longest = max(longest, stale)
+                finally:
+                    d.state.close()
+                most = max(most, asks)
+                if stale >= GUARD_ASKS:
+                    left_out.setdefault(name, set()).add(s.cache.kernel)
+                    print(f"  guard: {name} run {r} on the {s.cache.kernel} "
+                          f"recording asked {GUARD_ASKS} times in a row "
+                          f"with no fresh config, at {runner.fresh_evals} "
+                          f"fresh configs of "
+                          f"{s.n_total} and {runner.budget.spent_seconds!r} "
+                          f"of its {s.budget_s!r} s budget spent: it never "
+                          f"ends (ROADMAP Queue 3); the recording is left "
+                          f"out of {name}'s scoring")
+                    break
+        print(f"  guard: {name}: at most {most} asks a run and {longest} "
+              f"in a row with no fresh config, over {len(scorers)} "
+              f"recordings x {repeats} runs, {time.perf_counter() - t0:.3f} "
+              f"s")
+    return left_out
 
 
 class AskCounter:
@@ -1346,12 +1458,13 @@ def runner_state(runner) -> tuple:
             runner.budget.spent_evals, runner.fresh_evals)
 
 
-def check_fused_drive(cache, device: str, repeats: int) -> None:
+def check_fused_drive(cache, device: str, repeats: int) -> dict:
     """``drive_many(fuse="device")`` on ``device`` against the numpy
     ``drive_many`` over ``cache`` with the methodology's budget, for every
     strategy of ``FUSED_CHECK`` (``materialize=True``): each runner's
     trace, memo keys, budget floats, fresh evaluations and exhaustion
-    bit-identical, and every fused driver on the device path."""
+    bit-identical, and every fused driver on the device path. Returns each
+    strategy's budget-scan launches."""
     from repro_torch.core.budget import Budget
     from repro_torch.core.driver import SearchDriver, drive_many
     from repro_torch.core.engine_torch import replay as rp
@@ -1359,6 +1472,7 @@ def check_fused_drive(cache, device: str, repeats: int) -> None:
     from repro_torch.core.runner import SimulationRunner
     from repro_torch.core.strategies import get_strategy
     budget_s = make_scorer(cache, engine="vectorized").budget_s
+    launches = {}
     for name in FUSED_CHECK:
         drivers, walls = {}, {}
         for engine in ("torch", "numpy"):
@@ -1373,7 +1487,7 @@ def check_fused_drive(cache, device: str, repeats: int) -> None:
                        fuse="device" if engine == "torch" else None)
             walls[engine] = time.perf_counter() - t0
             if engine == "torch":
-                made = rp.launches - before
+                made = launches[name] = rp.launches - before
         same = all(runner_state(a.runner) == runner_state(b.runner)
                    and a.exhausted == b.exhausted
                    for a, b in zip(drivers["torch"], drivers["numpy"]))
@@ -1386,6 +1500,7 @@ def check_fused_drive(cache, device: str, repeats: int) -> None:
         if not same or modes != {"device"}:
             fail(f"drive_many(fuse='device') of {name} differs from the "
                  f"numpy drive_many or left the device path ({modes})")
+    return launches
 
 
 def ends_check(caches) -> None:
@@ -1415,7 +1530,7 @@ def time_limit(phase: int, limit_s: int):
     signal.alarm(limit_s)
 
 
-def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
+def hypertune(caches, device: str, repeats: int, limit_s: int) -> int:
     """Exhaustive GA hypertuning (Table III grid) across ``caches`` with
     the torch engine (device-fused), then the same campaign with the
     numpy engine, twice, and with the torch engine again: all scores must
@@ -1423,7 +1538,8 @@ def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
     configurations rescored with the numpy engine too. Prints each wall,
     the torch runs' budget-scan launches, their R and segment lengths and
     the host wall of the packed calls. Fails past ``limit_s`` seconds of
-    wall clock. The recordings must have passed ``ends_check``."""
+    wall clock. The recordings must have passed ``ends_check``. Returns
+    the torch runs' budget-scan launches."""
     from repro_torch.core.engine_torch import replay as rp
     from repro_torch.core.hypertuner import (exhaustive_hypertune,
                                              score_hyperconfig)
@@ -1434,6 +1550,7 @@ def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
     try:
         walls: dict = {"torch": [], "numpy": []}
         results = []
+        launches = 0
         # the main path's torch run first, then numpy, numpy, torch: the
         # two engines' walls compare only in turns on one card
         for engine in ("torch", "numpy", "numpy", "torch"):
@@ -1446,6 +1563,8 @@ def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
                     repeats=repeats, seed=0)
             wall = time.perf_counter() - t0
             scans = rp.launches - before
+            if engine == "torch":
+                launches += scans
             walls[engine].append(wall)
             results.append(res)
             modes = {r.report.fuse for r in res.results.values()}
@@ -1493,6 +1612,76 @@ def hypertune(caches, device: str, repeats: int, limit_s: int) -> None:
             if not same:
                 fail(f"hypertune: the {label} configuration scores "
                      f"differently with the numpy engine")
+        return launches
+    finally:
+        signal.alarm(0)
+
+
+def meta_campaign(caches, device: str, repeats: int, out_dir: pathlib.Path,
+                  limit_s: int) -> int:
+    """The paper's meta-strategy path (Eq. 4): ``meta_hypertune`` of the GA
+    over its extended grid with dual annealing as the meta-strategy (its
+    scipy loop on the driver's thread bridge, every inner campaign on this
+    thread), ``META_EVALS`` configurations scored, each journaled to a file
+    in a temporary directory under ``out_dir``; torch engine, then numpy
+    engine. Every evaluated score, the trace and the best configuration
+    must be bit-identical, and no bridge thread may outlive the campaign.
+    Fails past ``limit_s`` seconds of wall clock. Returns the torch
+    campaign's budget-scan launches."""
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.core.hypertuner import meta_hypertune
+    from repro_torch.core.methodology import make_scorer
+    from repro_torch.core.parallel import CampaignJournal
+    time_limit(6, limit_s)
+    try:
+        results = {}
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            for engine in ("torch", "vectorized"):
+                scorers = [make_scorer(c, engine=engine, device=device)
+                           for c in caches]
+                journal = CampaignJournal(str(pathlib.Path(tmp)
+                                              / f"meta-{engine}.jsonl"))
+                before = rp.launches
+                t0 = time.perf_counter()
+                res = meta_hypertune("genetic_algorithm", "dual_annealing",
+                                     scorers, extended=True,
+                                     max_hp_evals=META_EVALS,
+                                     repeats=repeats, seed=0,
+                                     journal=journal)
+                wall = time.perf_counter() - t0
+                made = rp.launches - before
+                records = len(journal.read()[1])
+                results[engine] = res
+                print(f"  meta {engine:10s}: dual annealing over the GA's "
+                      f"extended grid, {len(res.evaluated)} configurations x "
+                      f"{repeats} repeats x {len(caches)} spaces in "
+                      f"{wall:.3f} s wall, inner drive {res.fuse}, "
+                      f"{records} journal records"
+                      + (f", {made} budget-scan launches"
+                         if engine == "torch" else "")
+                      + f"; best {res.best_hyperparams} {res.best_score!r}")
+                if engine == "torch":
+                    launches = made
+                    if not made or res.fuse != "device":
+                        fail(f"meta: the torch campaign made {made} "
+                             f"budget-scan launches, inner drive {res.fuse}")
+        a, b = results["torch"], results["vectorized"]
+        same = (list(a.evaluated.items()) == list(b.evaluated.items())
+                and a.best_hyperparams == b.best_hyperparams
+                and a.best_score == b.best_score
+                and [t[:2] for t in a.trace] == [t[:2] for t in b.trace])
+        bridges = [t.name for t in threading.enumerate()
+                   if t.name == "repro-bridge"]
+        print(f"  meta torch / numpy: {a.wall_seconds / b.wall_seconds:.3f}; "
+              f"{len(a.evaluated)} scores and the best configuration "
+              f"{'bit-identical' if same else 'DIFFERENT'}; "
+              f"{len(bridges)} bridge threads left")
+        if not same or len(a.evaluated) != META_EVALS:
+            fail("meta: the dual-annealing campaign differs between the "
+                 "torch and numpy engines")
+        if bridges:
+            fail(f"meta: {len(bridges)} bridge threads outlived the campaign")
+        return launches
     finally:
         signal.alarm(0)
 
@@ -1570,20 +1759,31 @@ def main() -> int:
     ends_check(loaded)
     time_limit(5, SCORE_LIMIT_S)
     try:
-        replay_and_score(caches["gemm"], paths["gemm"], device, SCAN_RUNS,
-                         REPEATS)
-        score_both_engines(loaded, device, REPEATS)
+        left_out = cap_guard(loaded, REPEATS)
+        split = {f"{name}, phase 5": n for name, n in replay_and_score(
+            caches["gemm"], paths["gemm"], device, SCAN_RUNS, REPEATS,
+            left_out).items()}
+        for name, n in score_both_engines(loaded, device, REPEATS,
+                                          left_out).items():
+            key = f"{name}, phase 5"
+            split[key] = split.get(key, 0) + n
     finally:
         signal.alarm(0)
     print(f"  [phase 5: {time.perf_counter() - t0:.1f} s]")
     print(f"[6] main path: exhaustive GA hypertuning across the "
           f"{len(loaded)} recordings")
     t0 = time.perf_counter()
-    hypertune(loaded, device, HYPERTUNE_REPEATS, HYPERTUNE_LIMIT_S)
+    split["genetic_algorithm, phase 6 campaigns"] = hypertune(
+        loaded, device, HYPERTUNE_REPEATS, HYPERTUNE_LIMIT_S)
+    print(f"  [phase 6 GA campaigns: {time.perf_counter() - t0:.1f} s]")
+    split["dual_annealing meta campaign, phase 6"] = meta_campaign(
+        loaded, device, HYPERTUNE_REPEATS, out_dir,
+        max(1, HYPERTUNE_LIMIT_S - int(time.perf_counter() - t0)))
     print(f"  [phase 6: {time.perf_counter() - t0:.1f} s]")
     launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
     launches["budget_scan"] = rp.launches
     print(f"  launches on the main path: {launches}")
+    print(f"  budget-scan launches of phases 5-6 by strategy: {split}")
     if not all(launches.values()):
         fail(f"a kernel of the main path never launched: {launches}")
     for k in kernels:

@@ -20,26 +20,45 @@ evaluations are satisfied):
     into shared columnar ``run_fused`` calls (see ``runner.run_fused``),
     turning the methodology's repeat grid into cross-run batches.
 
-``GeneratorBridgeState`` converts an imperative search loop written as a
-generator (``obs = yield configs``) into the protocol without rewriting it
-as a state machine. A generator frame cannot pickle, so the state
-serializes as a *replay log*: the RNG's initial state plus the sequence of
+Two adapters convert imperative search loops into the protocol without
+rewriting them as state machines:
+
+  * ``GeneratorBridgeState`` — for strategies written as generators
+    (``obs = yield configs``). Pure-Python loops (simulated annealing, the
+    greedy local searches) read exactly as before, with each ``runner(x)``
+    call replaced by a yield.
+  * ``ThreadBridgeState`` — for strategies that drive a foreign callback
+    API (``dual_annealing`` wrapping scipy): the legacy ``_optimize`` runs
+    on a daemon thread against a proxy runner that rendezvous-hands each
+    evaluation request to the ask side.
+
+Neither adapter's runtime (generator frame, thread) can pickle; both
+serialize as *replay logs*: the RNG's initial state plus the sequence of
 observation batches told so far. Unpickling re-runs the strategy's own
 (cheap, deterministic) compute against the recorded observations — no
 kernel evaluation is repeated — and lands it in the exact mid-run state.
+
+Out-of-tree ``Strategy`` subclasses that still override ``_optimize`` keep
+working through the thread bridge, with this module's
+``ProtocolDeprecationWarning``.
 
 Port copy of ``src/repro/core/driver.py``
 and kept as its own copy: the port imports nothing of ``repro``. Changes:
 ``drive_many(fuse="device")`` drives eligible runs through
 ``engine_torch.drive_fused`` on the torch engine (the reference's jax
-engine); and the reference's thread bridge for legacy ``_optimize`` loops
-(``ThreadBridgeState``, its deprecation warning) is left out until a
-slice ports a strategy that needs it (the port's registry holds only
-ask/tell-native strategies).
+engine). The thread bridge is the reference's, and keeps the device off
+the bridge thread: that thread runs only the strategy's own loop (scipy,
+``repair_x``) and hands each batch of configs over, so every
+``run_batch``, and with it every ``commit_rows`` launch on the card, runs
+on the driving thread; ``close()`` joins the thread. The port's
+``ProtocolDeprecationWarning`` is a class of its own: pytest.ini escalates
+only the reference's.
 """
 from __future__ import annotations
 
+import queue
 import random
+import threading
 import warnings
 from typing import Callable, Sequence
 
@@ -47,6 +66,11 @@ from .budget import BudgetExhausted
 from .runner import Observation, Runner, run_fused
 from .searchspace import SearchSpace
 from .tunable import Config
+
+
+class ProtocolDeprecationWarning(DeprecationWarning):
+    """Raised-by-default in tier-1: a legacy ``_optimize`` body is being
+    adapted through the thread bridge instead of speaking ask/tell."""
 
 
 class FuseFallbackNotice(UserWarning):
@@ -97,8 +121,12 @@ class SearchState:
         """Re-attach the (unpickled-away) search space before resuming."""
         self.space = space
 
+    def attach_runner(self, runner: Runner) -> None:
+        """Driver hook: bridges keep a transient runner reference so that
+        proxied legacy code can still read ``runner.best``/``trace``."""
+
     def close(self) -> None:
-        """Release runtime resources (generator frames)."""
+        """Release runtime resources (generator frames, bridge threads)."""
 
     # -------------------------------------------------------------- pickling
     def __getstate__(self) -> dict:
@@ -194,6 +222,155 @@ class GeneratorBridgeState(_ReplayBridgeState):
             self._gen = None
 
 
+class _BridgeShutdown(BaseException):
+    """Injected into a bridge thread to unwind it when the driver stops
+    first (budget exhausted / driver closed). BaseException so legacy
+    ``except Exception`` blocks cannot swallow it."""
+
+
+class _ProxyRunner:
+    """What a thread-bridged ``_optimize`` sees as its runner: evaluation
+    calls rendezvous with the driver; everything else is delegated
+    (read-only) to the real runner, which is only ever mutated while the
+    strategy thread is blocked here."""
+
+    def __init__(self, bridge: "_OptimizeThread"):
+        self._bridge = bridge
+
+    def run_batch(self, configs: Sequence[Config]) -> list[Observation]:
+        bridge = self._bridge
+        bridge.requests.put(("ask", list(configs)))
+        resp = bridge.responses.get()
+        if isinstance(resp, BaseException):
+            raise resp
+        return resp
+
+    def run(self, config: Config) -> Observation:
+        return self.run_batch([config])[0]
+
+    def __call__(self, config: Config) -> float:
+        return self.run_batch([config])[0].value
+
+    def __getattr__(self, name: str):
+        runner = self._bridge.runner
+        if runner is None:
+            raise AttributeError(
+                f"proxy runner has no {name!r} (no live runner attached)")
+        return getattr(runner, name)
+
+
+class _OptimizeThread:
+    """Daemon thread running a legacy imperative search loop, exchanging
+    (ask, observations) pairs with the driver through one-shot queues."""
+
+    def __init__(self, fn: Callable, space: SearchSpace, rng: random.Random,
+                 runner: Runner | None):
+        self.requests: queue.SimpleQueue = queue.SimpleQueue()
+        self.responses: queue.SimpleQueue = queue.SimpleQueue()
+        self.runner = runner
+        self._thread = threading.Thread(
+            target=self._main, args=(fn, space, rng), daemon=True,
+            name="repro-bridge")
+        self._thread.start()
+
+    def _main(self, fn: Callable, space: SearchSpace,
+              rng: random.Random) -> None:
+        try:
+            fn(space, _ProxyRunner(self), rng)
+        except _BridgeShutdown:
+            return
+        except BaseException as e:  # surfaced on the driver side
+            self.requests.put(("error", e))
+            return
+        self.requests.put(("done", None))
+
+    def next_request(self):
+        return self.requests.get()
+
+    def respond(self, payload) -> None:
+        self.responses.put(payload)
+
+    def shutdown(self) -> None:
+        # if the thread is (or will be) blocked awaiting a response, this
+        # unwinds it; if it already finished, the token is never read
+        self.responses.put(_BridgeShutdown())
+        self._thread.join(timeout=10.0)
+
+
+class ThreadBridgeState(_ReplayBridgeState):
+    """Adapter for strategies that drive a foreign synchronous callback API
+    (scipy's ``dual_annealing``): the legacy ``_optimize`` runs on a bridge
+    thread; each of its runner calls becomes one ask/tell exchange."""
+
+    def attach_runner(self, runner: Runner) -> None:
+        self._runner = runner
+        bridge = getattr(self, "_bridge", None)
+        if bridge is not None:
+            bridge.runner = runner
+
+    def _running(self) -> bool:
+        return getattr(self, "_bridge", None) is not None
+
+    def _start(self) -> None:
+        self.rng.setstate(self.rng0)
+        self._bridge = _OptimizeThread(self.strategy._optimize, self.space,
+                                       self.rng, getattr(self, "_runner", None))
+        for obs in self.history:  # replay: reposition after unpickle
+            kind, payload = self._bridge.next_request()
+            if kind != "ask":
+                raise RuntimeError(
+                    f"bridge replay diverged: expected an evaluation "
+                    f"request, got {kind!r} — the strategy is not "
+                    f"deterministic given (rng, observations)")
+            self._bridge.respond(obs)
+        self._fetch()
+
+    def _fetch(self) -> None:
+        kind, payload = self._bridge.next_request()
+        if kind == "ask":
+            self.pending = payload
+        elif kind == "done":
+            self.finished = True
+            self.pending = None
+        else:  # "error": legacy loops propagate everything but the budget
+            self.finished = True
+            self.pending = None
+            raise payload
+
+    def _advance(self, observations: list[Observation]) -> None:
+        self._bridge.respond(observations)
+        self._fetch()
+
+    def close(self) -> None:
+        bridge = getattr(self, "_bridge", None)
+        if bridge is not None:
+            bridge.shutdown()
+            self._bridge = None
+
+
+def warn_legacy_optimize(strategy, stacklevel: int = 3) -> None:
+    """The one copy of the legacy-``_optimize`` deprecation warning
+    (``Strategy.run``'s direct dispatch and the thread-bridge fallback
+    both emit it; tier-1 escalates it to an error unless asserted)."""
+    warnings.warn(
+        f"{type(strategy).__name__} only implements the legacy "
+        f"_optimize(space, runner, rng) loop; implement init_state/ask/"
+        f"tell (or _generate) for native ask/tell support — see "
+        f"docs/api.md.",
+        ProtocolDeprecationWarning, stacklevel=stacklevel)
+
+
+def legacy_state(strategy, space: SearchSpace, rng: random.Random,
+                 warn: bool = False) -> ThreadBridgeState:
+    """Wrap an imperative ``_optimize`` body as a suspendable SearchState.
+
+    Explicit callers (``dual_annealing``) opt in silently; the base
+    ``Strategy.init_state`` fallback for out-of-tree subclasses warns."""
+    if warn:
+        warn_legacy_optimize(strategy, stacklevel=4)
+    return ThreadBridgeState(strategy, space, rng)
+
+
 # -------------------------------------------------------------------- driver
 class SearchDriver:
     """Owns one tuning run: ask → evaluate (budget/trace) → tell.
@@ -214,6 +391,7 @@ class SearchDriver:
         else:
             state.bind(space)
         self.state = state
+        state.attach_runner(runner)
         self.exhausted = False
         # how this run's evaluations were driven: "sequential" (own
         # step()/run() loop) until a drive_many sets "host" or "device"

@@ -26,11 +26,11 @@ Port copy of ``src/repro/core/hypertuner.py``
 and kept as its own copy: the port imports nothing of ``repro``. The code
 is the reference's, unchanged; it runs over the port's scorers, so with
 the torch engine (their default) every batch of every simulated tuning run
-commits through the budget-scan kernel on the scorer's device. The grids
-are those of the port's strategies: random search has no hyperparameters,
-so the genetic algorithm is the one strategy a campaign can tune until the
-remaining strategies are ported (ROADMAP Queue 1); random search serves as
-a meta-strategy.
+commits through the budget-scan kernel on the scorer's device. The port
+registers the reference's nine strategies, so every grid and meta-strategy
+of the reference is here; a scipy-driven meta-strategy (dual annealing)
+runs through the driver's thread bridge, with every inner campaign on the
+driving thread.
 """
 from __future__ import annotations
 

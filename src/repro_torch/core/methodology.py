@@ -26,10 +26,7 @@ the caller asks for the CPU (``device="cpu"``) or a host engine
 (``"vectorized"``/``"scalar"``, the parity oracle); the device-fused drive
 (``run_repeats_device``) runs its runners on the torch engine on the
 scorer's device and has no "engine unavailable" fallback (without CUDA a
-scorer not on ``device="cpu"`` raises instead). ``run_repeats_fused``
-drives ask/tell strategies only (the port's registry holds no other kind),
-so the reference's sequential fallbacks for duck-typed and thread-bridged
-strategies are left out.
+scorer not on ``device="cpu"`` raises instead).
 """
 from __future__ import annotations
 
@@ -396,7 +393,8 @@ def _repeat_rng(scorer: SpaceScorer, repeat: int, seed: int) -> random.Random:
 def run_repeats_fused(scorer: SpaceScorer,
                       make_strategy: Callable[[], Strategy],
                       repeats: int, seed: int, times: np.ndarray,
-                      baseline: np.ndarray) -> list[RepeatResult]:
+                      baseline: np.ndarray
+                      ) -> tuple[list[RepeatResult], str]:
     """All of one space's repeats as concurrent, ask-fused tuning runs.
 
     Builds one ``SearchDriver`` per repeat (same per-cell RNG seeding as
@@ -407,22 +405,52 @@ def run_repeats_fused(scorer: SpaceScorer,
     sequential loop; only wall time changes. Per-cell ``wall_seconds`` is
     an even share of the fused wall (runs overlap, so a per-runner clock
     would multiple-count).
+
+    Returns ``(cells, mode)`` where ``mode`` is ``"host"``, or
+    ``"sequential"`` when the strategy cannot be driven ask/tell-wise —
+    announced once per (strategy, reason) with a ``FuseFallbackNotice``.
     """
-    from .driver import SearchDriver, drive_many
+    from .driver import (SearchDriver, ThreadBridgeState, drive_many,
+                         warn_fuse_fallback)
     t0 = time.perf_counter()
     drivers = []
     for r in range(repeats):
+        strategy = make_strategy()
+        if not hasattr(strategy, "init_state"):
+            # duck-typed strategy exposing only run(space, runner, rng):
+            # no ask/tell to fuse — drive the cells sequentially
+            warn_fuse_fallback(
+                getattr(strategy, "name", type(strategy).__name__),
+                "duck-typed strategy exposes only run(space, runner, rng); "
+                "no ask/tell protocol to fuse", "sequential")
+            return [run_repeat(scorer, make_strategy, rr, seed, times,
+                               baseline) for rr in range(repeats)], \
+                "sequential"
         runner = SimulationRunner(scorer.cache,
                                   Budget(max_seconds=scorer.budget_s),
                                   engine=scorer.engine, device=scorer.device)
-        drivers.append(SearchDriver(make_strategy(), scorer.cache.space,
-                                    runner, _repeat_rng(scorer, r, seed)))
+        driver = SearchDriver(strategy, scorer.cache.space, runner,
+                              _repeat_rng(scorer, r, seed))
+        if r == 0 and isinstance(driver.state, ThreadBridgeState):
+            # thread-bridged loops (dual_annealing wrapping scipy) pay a
+            # thread rendezvous per evaluation when driven ask/tell-wise;
+            # their direct legacy dispatch in Strategy.run is bit-identical
+            # and much faster, so those cells run sequentially
+            driver.state.close()
+            warn_fuse_fallback(
+                getattr(strategy, "name", type(strategy).__name__),
+                "thread-bridged legacy loop pays a thread rendezvous per "
+                "evaluation when driven ask/tell-wise", "sequential")
+            return [run_repeat(scorer, make_strategy, rr, seed, times,
+                               baseline) for rr in range(repeats)], \
+                "sequential"
+        drivers.append(driver)
     drive_many(drivers)
     wall_share = (time.perf_counter() - t0) / max(1, repeats)
     return [RepeatResult(scorer.score_trace(d.runner.trace, times, baseline),
                          d.runner.fresh_evals, wall_share,
                          d.runner.budget.spent_seconds)
-            for d in drivers]
+            for d in drivers], "host"
 
 
 def run_repeats_device(scorer: SpaceScorer,
@@ -545,9 +573,9 @@ def evaluate_strategy(make_strategy: Callable[[], Strategy],
                 mode = "device"
             if res is None and drive != "sequential" \
                     and scorer.engine != "scalar":
-                res = run_repeats_fused(scorer, make_strategy, repeats, seed,
-                                        times[si], baselines[si])
-                mode = "host"
+                res, mode = run_repeats_fused(
+                    scorer, make_strategy, repeats, seed, times[si],
+                    baselines[si])
             if res is None:
                 res = [run_repeat(scorer, make_strategy, r, seed, times[si],
                                   baselines[si]) for r in range(repeats)]

@@ -48,12 +48,15 @@ threads: parallel campaigns (``core.parallel``) construct one runner per
 (space, repeat) task — see ``methodology.run_repeat``.
 
 Port copy of ``src/repro/core/runner.py``
-and kept as its own copy: the port imports nothing of ``repro``. Two
+and kept as its own copy: the port imports nothing of ``repro``. Three
 changes: ``SimulationRunner`` takes ``engine="torch"`` (the CUDA budget
 scan of ``core.engine_torch``, with no fallback; the default) and a
-``device``, and ``engine`` replaces the reference's ``columnar`` flag; and
-``LiveRunner`` records only configs the kernel rejects as failures, letting
-every other exception propagate.
+``device``, and ``engine`` replaces the reference's ``columnar`` flag; on
+that engine ``run(config)`` and ``run_batch`` of plain config tuples (dual
+annealing's value-tuple asks, direct or through the thread bridge) commit
+through the same kernel as row asks, where the reference resolves them on
+the host; and ``LiveRunner`` records only configs the kernel rejects as
+failures, letting every other exception propagate.
 """
 from __future__ import annotations
 
@@ -212,8 +215,9 @@ class SimulationRunner(Runner):
       * ``"torch"`` (the default): every batch with a fresh row goes
         through ``core.engine_torch``'s budget-scan kernel on ``device``
         (the card unless ``"cpu"`` is asked for, where the kernel's plain
-        version runs). Nothing falls back: without CUDA and without
-        ``device="cpu"`` the constructor raises ``RuntimeError``.
+        version runs), row asks and plain configs alike (``run`` too).
+        Nothing falls back: without CUDA and without ``device="cpu"`` the
+        constructor raises ``RuntimeError``.
       * ``"numpy"`` (alias ``"vectorized"``): the cache's array-backed
         view on the host; single evaluations skip the results-dict hop and
         ``run_batch`` gathers a whole generation in one numpy read.
@@ -582,6 +586,22 @@ class SimulationRunner(Runner):
                 return exc
         return [obs_by_row[r] for r in rows.tolist()]
 
+    def _space_rows(self, configs: Sequence[Config]) -> "list[int] | None":
+        """The space rows of plain configs, so that the torch engine commits
+        them through the budget scan as it commits row asks. None when one
+        has no row (a config outside the space's valid set, which the
+        kernel's tables cannot hold): that batch commits on the host, as
+        the reference commits every plain-config batch."""
+        cs = self.space.compiled
+        id_to_row, valid = cs.id_to_row, cs.configs
+        rows = []
+        for key, config in zip(self.space.config_ids(configs), configs):
+            row = id_to_row.get(key, -1)
+            if row < 0 or valid[row] != config:
+                return None
+            rows.append(row)
+        return rows
+
     # gather granularity: a strategy may hand over far more configs than the
     # budget allows (random search batches the whole space permutation);
     # chunks grow geometrically so a budget-capped run wastes at most one
@@ -590,10 +610,20 @@ class SimulationRunner(Runner):
     BATCH_CHUNK_MIN = 64
     BATCH_CHUNK_MAX = 2048
 
+    def run(self, config: Config) -> Observation:
+        if self.engine != "torch":
+            return super().run(config)
+        return self.run_batch((config,))[0]
+
     def run_batch(self, configs: Sequence[Config]) -> list[Observation]:
+        rows = None
         if (self.columnar and isinstance(configs, RowBatch)
                 and configs.compiled is self.space.compiled):
-            res = self._run_rows(configs.rows)
+            rows = configs.rows
+        elif self.engine == "torch":
+            rows = self._space_rows(configs)
+        if rows is not None:
+            res = self._run_rows(rows)
             if isinstance(res, BudgetExhausted):
                 raise res
             return res

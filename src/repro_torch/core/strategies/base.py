@@ -20,31 +20,36 @@ budget handling, trace recording, and the RNG stepping order.
 bit-identical to the pre-refactor imperative loops (pinned by
 tests/test_protocol.py against a frozen reference and recorded fixtures).
 
-Two ways to implement a strategy:
+Three ways to implement a strategy:
 
   * natively (GA, PSO, DE, random search): override ``init_state``/``ask``/
     ``tell``;
   * as a generator (simulated annealing, the greedy local searches):
     subclass ``GeneratorStrategy`` and write ``_generate(space, rng)`` with
-    ``obs = yield configs`` where the old loop called the runner.
+    ``obs = yield configs`` where the old loop called the runner;
+  * legacy (out-of-tree subclasses, ``dual_annealing``'s scipy wrapper):
+    keep ``_optimize(space, runner, rng)``; it is adapted through the
+    thread bridge — with a ``ProtocolDeprecationWarning`` unless the class
+    opts in by overriding ``init_state`` itself.
 
 Hyperparameters: each strategy declares ``DEFAULTS`` plus two hyperparameter
 spaces — ``HYPERPARAM_SPACE`` (the paper's Table III, exhaustive-tuning sized)
 and ``EXTENDED_SPACE`` (Table IV, meta-strategy sized). The hypertuner treats
 these as ordinary SearchSpaces: tuning the tuner reuses the same machinery.
 
-Port copy of ``src/repro/core/strategies/base.py``
-and kept as its own copy: the port imports nothing of ``repro``. The
-reference's third way, a legacy ``_optimize(space, runner, rng)`` loop
-adapted through a thread bridge, is left out until a slice ports a
-strategy that needs it (``dual_annealing``).
+Port copy of ``src/repro/core/strategies/base.py``, code unchanged (its
+imports are relative), and kept as its own copy: the port imports nothing
+of ``repro``. Its ``ProtocolDeprecationWarning`` is the port's
+(``core.driver``).
 """
 from __future__ import annotations
 
 import random
 from typing import Mapping, Sequence
 
-from ..driver import GeneratorBridgeState, SearchDriver, SearchState
+from ..budget import BudgetExhausted
+from ..driver import (GeneratorBridgeState, SearchDriver, SearchState,
+                      legacy_state, warn_legacy_optimize)
 from ..runner import Observation, Runner
 from ..searchspace import SearchSpace
 from ..tunable import Config
@@ -68,9 +73,14 @@ class Strategy:
 
     # ------------------------------------------------------ ask/tell protocol
     def init_state(self, space: SearchSpace, rng: random.Random) -> SearchState:
-        """Build this run's explicit state; every strategy overrides this."""
+        """Build this run's explicit state. The default adapts a legacy
+        ``_optimize`` through the thread bridge (with a deprecation
+        warning); protocol-native strategies override this."""
+        if type(self)._optimize is not Strategy._optimize:
+            return legacy_state(self, space, rng, warn=True)
         raise NotImplementedError(
-            f"{type(self).__name__} does not implement init_state/ask/tell")
+            f"{type(self).__name__} implements neither init_state/ask/tell "
+            f"nor the legacy _optimize loop")
 
     def ask(self, state: SearchState) -> Sequence[Config] | None:
         """Next batch of configs to evaluate (None/empty = done). The base
@@ -89,8 +99,30 @@ class Strategy:
 
         Thin wrapper over ``core.driver.SearchDriver`` — the runner records
         the full trace; callers read ``runner.trace``.
+
+        Strategies that only implement the legacy imperative ``_optimize``
+        loop (``dual_annealing`` wrapping scipy, out-of-tree subclasses)
+        dispatch to it directly here: running their loop over the thread
+        bridge would pay a thread rendezvous per evaluation for no benefit
+        when nobody is stepping the run. The result is bit-identical
+        (``tests/test_protocol.py``); the bridge path stays available
+        through an explicit ``SearchDriver`` for suspension, fused
+        driving, and meta checkpoints.
         """
+        if type(self)._optimize is not Strategy._optimize:
+            if type(self).init_state is Strategy.init_state:
+                warn_legacy_optimize(self, stacklevel=2)
+            try:
+                self._optimize(space, runner, rng)
+            except BudgetExhausted:
+                pass
+            return runner.best
         return SearchDriver(self, space, runner, rng).run()
+
+    def _optimize(self, space: SearchSpace, runner: Runner,
+                  rng: random.Random) -> None:
+        """Deprecated pre-ask/tell entry point; see ``init_state``."""
+        raise NotImplementedError
 
     # ------------------------------------------------------------- helpers
     @staticmethod

@@ -11,8 +11,8 @@ numpy engine; both packages load the same ``_synth.parity_cache`` file.
 Tolerance: none — traces, memo keys, budget floats, ``fresh_evals``,
 exhaustion points and scores must be bit-identical.
 
-The cases are tests/test_campaign_fused.py's, without differential
-evolution (the port has no DE yet). The reference's fused path cannot run
+The cases are tests/test_campaign_fused.py's, differential evolution
+included. The reference's fused path cannot run
 beside them: its jax engine does not import on this jax. On the card,
 tests/test_torch_cuda.py holds ``drive_fused`` on ``cuda`` against the
 same drivers on the CPU.
@@ -51,7 +51,7 @@ from repro_torch.core.strategies import get_strategy
 SYNTH = parity_cache()
 TOTAL = total_charge(SYNTH)
 
-# tests/test_campaign_fused.py's CASES without differential evolution:
+# tests/test_campaign_fused.py's CASES:
 # mid-generation eval exhaustion, mid-batch time exhaustion, and a natural
 # finish (random_search is the only fused strategy that stops asking on
 # its own)
@@ -68,6 +68,7 @@ CASES = [
      {"max_seconds": TOTAL * 0.3}),
     ("pso", {"popsize": 30, "maxiter": 50, "c1": 1.0, "c2": 0.5},
      {"max_seconds": TOTAL * 0.25, "max_evals": 100}),
+    ("differential_evolution", {}, {"max_seconds": TOTAL * 0.2}),
 ]
 
 
@@ -154,7 +155,8 @@ def test_fused_group_matches_isolated_runs(caches):
 
 
 @given(seed=st.integers(0, 2 ** 20),
-       name=st.sampled_from(["random_search", "genetic_algorithm", "pso"]),
+       name=st.sampled_from(["random_search", "genetic_algorithm", "pso",
+                             "differential_evolution"]),
        by_evals=st.booleans(), n_evals=st.integers(1, 150),
        sec_frac=st.floats(0.02, 0.6))
 @settings(max_examples=25, deadline=None)
@@ -419,8 +421,8 @@ def test_fused_group_launches_as_reported(caches, monkeypatch):
     launches = campaign._drive_group(runs, caches[1].columns,
                                      caches[1].space.compiled)
     assert launches == len(calls) >= 1
-    # four runs, padded as the reference pads them (at least 8)
-    assert calls[0][0] == rp._pad_len(4) == 8
+    # five runs, padded as the reference pads them (at least 8)
+    assert calls[0][0] == rp._pad_len(5) == 8
     assert all(r.done for r in runs)
 
 

@@ -28,7 +28,7 @@ import torch
 from repro_torch.core import engine_torch
 from repro_torch.core.budget import Budget
 from repro_torch.core.cache import CachedResult, CacheFile
-from repro_torch.core.driver import SearchDriver
+from repro_torch.core.driver import SearchDriver, drive_many
 from repro_torch.core.engine_torch import campaign
 from repro_torch.core.methodology import evaluate_strategy, make_scorer
 from repro_torch.core.runner import SimulationRunner
@@ -647,7 +647,8 @@ def test_packed_commit_rows_is_one_launch_a_call(card):
 def test_torch_engine_on_card_matches_numpy_engine(card):
     cache = _cache()
     for name in ("random_search", "genetic_algorithm", "simulated_annealing",
-                 "pso"):
+                 "pso", "dual_annealing", "differential_evolution",
+                 "greedy_ils", "mls"):
         reports = [evaluate_strategy(lambda: get_strategy(name),
                                      [make_scorer(cache, engine=engine,
                                                   device=card)],
@@ -721,3 +722,94 @@ def test_fused_segment_is_one_launch(card, runs):
     assert blocks.host_in.is_pinned()
     assert (max(runs, 8), engine_torch.replay._pad_len(
         cache.space.compiled.n_valid)) in blocks._calls
+
+
+def _state(d) -> tuple:
+    r = d.runner
+    return (r.trace, sorted(r.memo), r.budget.spent_seconds,
+            r.budget.spent_evals, r.fresh_evals, d.exhausted)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+@pytest.mark.parametrize("name", ["dual_annealing", "basin_hopping"])
+def test_host_driven_strategy_on_card_matches_numpy_engine(card, name,
+                                                           seed):
+    """Dual annealing (the scipy loop on the bridge thread, each
+    evaluation on this thread) and basin hopping (a generator) on the
+    torch engine on the card, stepped under the methodology's budget up to
+    a cap (basin hopping can revisit forever, ROADMAP Queue 3): the numpy
+    engine's state, with budget-scan launches on the card."""
+    cache = _cache()
+    budget = make_scorer(cache, engine="vectorized").budget_s
+
+    def drive(engine, device):
+        d = SearchDriver(get_strategy(name), cache.space,
+                         SimulationRunner(cache, Budget(max_seconds=budget),
+                                          engine=engine, device=device),
+                         random.Random(seed))
+        for _ in range(3000):
+            if not d.step():
+                break
+        d.state.close()
+        return d
+
+    before = engine_torch.replay.launches
+    got = drive("torch", card)
+    assert engine_torch.replay.launches > before
+    assert _state(got) == _state(drive("numpy", None))
+
+
+def test_dual_annealing_direct_dispatch_on_card(card):
+    """``Strategy.run`` dispatches dual annealing's ``_optimize`` directly:
+    its ``runner(cfg)`` calls commit through the budget scan on the card,
+    as the numpy engine commits them, and as the bridge does."""
+    cache = _cache()
+    budget = make_scorer(cache, engine="vectorized").budget_s
+    runners = {}
+    before = engine_torch.replay.launches
+    for engine, device in (("torch", card), ("numpy", None)):
+        runners[engine] = SimulationRunner(cache, Budget(max_seconds=budget),
+                                           engine=engine, device=device)
+        get_strategy("dual_annealing").run(cache.space, runners[engine],
+                                           random.Random(2))
+        if engine == "torch":
+            assert engine_torch.replay.launches > before
+    bridged = SearchDriver(get_strategy("dual_annealing"), cache.space,
+                           SimulationRunner(cache, Budget(max_seconds=budget),
+                                            engine="torch", device=card),
+                           random.Random(2))
+    bridged.run()
+    for r in (runners["torch"], bridged.runner):
+        assert r.trace == runners["numpy"].trace
+        assert (r.budget.spent_seconds, r.fresh_evals) == \
+            (runners["numpy"].budget.spent_seconds,
+             runners["numpy"].fresh_evals)
+
+
+def test_de_fused_on_card_matches_numpy_drive_many(card):
+    """Differential evolution device-fused on the card (both updating
+    modes, caps by time and by count): the numpy ``drive_many``'s state,
+    in budget-scan launches at R = the group's runs."""
+    cache = _cache()
+    total = sum(r.charge_s for r in cache.results.values())
+    cases = [({}, {"max_seconds": total * 0.3}),
+             ({"updating": "deferred", "popsize": 10}, {"max_evals": 77}),
+             ({"popsize": 30, "F": 1.2}, {"max_seconds": total * 0.2,
+                                          "max_evals": 150})]
+
+    def drivers(engine, device):
+        return [SearchDriver(get_strategy("differential_evolution", **hp),
+                             cache.space,
+                             SimulationRunner(cache, Budget(**bk),
+                                              engine=engine, device=device),
+                             random.Random(i))
+                for i, (hp, bk) in enumerate(cases)]
+
+    got, want = drivers("torch", card), drivers("numpy", None)
+    before = engine_torch.replay.launches
+    drive_many(got, fuse="device")
+    assert engine_torch.replay.launches > before
+    drive_many(want)
+    assert all(d.fuse == "device" for d in got)
+    for a, b in zip(got, want):
+        assert _state(a) == _state(b)

@@ -110,15 +110,19 @@ def test_drive_many_engine_switch_and_device_fuse(cache_path):
 
 
 def test_registries_hold_this_slice_only():
-    """Every kernel of the reference is ported; of its strategies, dual
-    annealing and the four extra ones are not yet (ROADMAP Queue 1)."""
-    for name in ("dual_annealing", "differential_evolution", "basin_hopping",
-                 "greedy_ils", "mls"):
-        with pytest.raises(KeyError):
-            get_strategy(name)
-    for name in ("random_search", "genetic_algorithm", "simulated_annealing",
-                 "pso"):
+    """Every kernel and every strategy of the reference is ported: all
+    nine names resolve, in the reference's order, with its paper set."""
+    from repro.core.strategies import PAPER_STRATEGIES as REF_PAPER
+    from repro.core.strategies import STRATEGIES as REF_STRATEGIES
+    from repro_torch.core.strategies import PAPER_STRATEGIES, STRATEGIES
+    assert list(STRATEGIES) == list(REF_STRATEGIES)
+    assert len(STRATEGIES) == 9
+    assert PAPER_STRATEGIES == REF_PAPER
+    for name in REF_STRATEGIES:
         assert get_strategy(name).name == name
+        assert type(get_strategy(name)).__module__.startswith("repro_torch.")
+    with pytest.raises(KeyError):
+        get_strategy("no_such_strategy")
     with pytest.raises(KeyError):
         get_kernel("no_such_kernel")
     for name in ("flash_attention", "ssd"):

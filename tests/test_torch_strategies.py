@@ -1,12 +1,20 @@
-"""The port's simulated annealing and PSO against the reference's.
+"""The port's strategies against the reference's.
 
-Both strategies are copies of the reference's modules, so with the same
-recordings, seeds and hyperparameters they must draw the same configs and
-score the same floats: every comparison here is ``==``, not approximate.
-The recordings are the closed-form synthetic caches of tests/_synth.py
-(written once and loaded by each package); on both of them the
-methodology's budget runs out before a run could have visited every
-config, so no tuning run can restart forever (ROADMAP Queue 3).
+Every strategy but random search and the GA is held here (those two are
+held by tests/test_torch_hypertuner.py): simulated annealing, PSO, dual
+annealing, differential evolution, basin hopping, greedy ILS and MLS. Each
+is a copy of the reference's module, so with the same recordings, seeds and
+hyperparameters they must draw the same configs and score the same
+floats: every comparison here is ``==``, not approximate. The recordings
+are the closed-form synthetic caches of tests/_synth.py (written once and
+loaded by each package); on all of them the methodology's budget runs out
+before a run could have visited every config, so no tuning run can restart
+forever (ROADMAP Queue 3).
+
+Basin hopping is scored on a third, 48-config recording: on the two
+others most of its runs stop finding fresh configs before the budget is
+spent and then revisit forever, in both packages (ROADMAP Queue 3; the
+stall itself is pinned by tests/test_torch_protocol.py).
 """
 import contextlib
 import io
@@ -27,21 +35,42 @@ from repro_torch.core.cache import CacheFile
 from repro_torch.core.parallel import StrategyFactory
 from repro_torch.core.strategies import STRATEGIES, get_strategy
 
-NEW = ("simulated_annealing", "pso")
+NEW = ("simulated_annealing", "pso", "dual_annealing",
+       "differential_evolution", "basin_hopping", "greedy_ils", "mls")
 HYPERPARAMS = {  # a non-default point of each Table III grid
     "simulated_annealing": {"T": 0.5, "T_min": 0.01, "alpha": 0.9925,
                             "maxiter": 3},
     "pso": {"popsize": 10, "maxiter": 50, "c1": 3.0, "c2": 0.5},
+    "dual_annealing": {"method": "Nelder-Mead"},
+    "differential_evolution": {"popsize": 10, "maxiter": 50, "F": 0.4,
+                               "CR": 0.5},
+    "basin_hopping": {"T": 0.5, "stepsize": 4, "local_iters": 16},
+    "greedy_ils": {"perturbation": 4, "restart_chance": 0.2},
+    "mls": {"adjacent_only": False},
 }
+GRID_SIZES = {"simulated_annealing": 81, "pso": 81, "dual_annealing": 8,
+              "differential_evolution": 81, "basin_hopping": 27,
+              "greedy_ils": 9, "mls": 2}
+# how evaluate_strategy(drive="auto") drives each on the torch engine
+DRIVES = {"simulated_annealing": "host", "pso": "device",
+          "dual_annealing": "sequential", "differential_evolution": "device",
+          "basin_hopping": "host", "greedy_ils": "host", "mls": "host"}
 
 
 @pytest.fixture(scope="module")
 def cache_paths(tmp_path_factory):
     d = tmp_path_factory.mktemp("strategies")
-    paths = [str(d / "parity.json.gz"), str(d / "second.json")]
+    paths = [str(d / "parity.json.gz"), str(d / "second.json"),
+             str(d / "small.json")]
     parity_cache().save(paths[0])
     parity_cache(n_a=16, n_b=3, name="second", fail_every=7).save(paths[1])
+    parity_cache(n_a=8, n_b=3, name="small", fail_every=7).save(paths[2])
     return paths
+
+
+def _spaces(paths, name):
+    """The recordings ``name`` is scored on (see the module docstring)."""
+    return paths[2:] if name == "basin_hopping" else paths[:2]
 
 
 def _ours(paths, engine):
@@ -84,7 +113,7 @@ def test_hyperparam_searchspace_equals_reference(name, extended):
     ref = ref_ht.hyperparam_searchspace(name, extended=extended)
     assert ours.name == ref.name
     assert ours.size == ref.size
-    assert extended or ours.size == 81
+    assert extended or ours.size == GRID_SIZES[name]
     assert ours.valid_configs == ref.valid_configs
     assert [ours.config_id(c) for c in ours.valid_configs] == \
         [ref.config_id(c) for c in ref.valid_configs]
@@ -97,9 +126,11 @@ def test_evaluate_strategy_equals_reference(cache_paths, name, hp, seed):
     hyperparams = {} if hp == "defaults" else HYPERPARAMS[name]
     ours = methodology.evaluate_strategy(
         StrategyFactory.create(name, hyperparams),
-        _ours(cache_paths, "vectorized"), repeats=5, seed=seed)
+        _ours(_spaces(cache_paths, name), "vectorized"), repeats=5,
+        seed=seed)
     ref = ref_meth.evaluate_strategy(RefFactory.create(name, hyperparams),
-                                     _ref(cache_paths), repeats=5, seed=seed)
+                                     _ref(_spaces(cache_paths, name)),
+                                     repeats=5, seed=seed)
     _same_report(ours, ref)
 
 
@@ -110,19 +141,21 @@ def test_torch_engine_equals_numpy_engine(cache_paths, name):
     for hyperparams in ({}, HYPERPARAMS[name]):
         reports = [methodology.evaluate_strategy(
             StrategyFactory.create(name, hyperparams),
-            _ours(cache_paths, engine), repeats=3, seed=1)
+            _ours(_spaces(cache_paths, name), engine), repeats=3, seed=1)
             for engine in ("torch", "vectorized")]
         _same_report(*reports)
+        assert reports[0].fuse == DRIVES[name]
 
 
 @pytest.mark.parametrize("name", NEW)
 def test_exhaustive_hypertune_equals_reference(cache_paths, name):
-    """The whole Table III grid (81 configurations) over two recordings."""
-    ours = ht.exhaustive_hypertune(name, _ours(cache_paths, "vectorized"),
+    """The whole Table III grid over the strategy's recordings."""
+    spaces = _spaces(cache_paths, name)
+    ours = ht.exhaustive_hypertune(name, _ours(spaces, "vectorized"),
                                    repeats=2)
-    ref = ref_ht.exhaustive_hypertune(name, _ref(cache_paths), repeats=2)
+    ref = ref_ht.exhaustive_hypertune(name, _ref(spaces), repeats=2)
     assert list(ours.results) == list(ref.results)
-    assert len(ours.results) == 81
+    assert len(ours.results) == GRID_SIZES[name]
     for hp_id, r in ref.results.items():
         assert ours.results[hp_id].hyperparams == r.hyperparams
         _same_report(ours.results[hp_id].report, r.report)
@@ -134,12 +167,17 @@ def test_exhaustive_hypertune_equals_reference(cache_paths, name):
 @pytest.mark.parametrize("name,meta", [("simulated_annealing", "pso"),
                                        ("pso", "simulated_annealing"),
                                        ("genetic_algorithm",
-                                        "simulated_annealing")])
+                                        "simulated_annealing"),
+                                       ("genetic_algorithm",
+                                        "dual_annealing"),
+                                       ("dual_annealing", "pso")])
 def test_meta_hypertune_equals_reference(cache_paths, name, meta):
-    """Either strategy tunes, or is tuned, as in the reference."""
+    """Each strategy tunes, or is tuned, as in the reference; dual
+    annealing as the meta-strategy runs through the thread bridge."""
     kw = dict(extended=False, max_hp_evals=5, repeats=2, seed=2)
-    ours = ht.meta_hypertune(name, meta, _ours(cache_paths, "torch"), **kw)
-    ref = ref_ht.meta_hypertune(name, meta, _ref(cache_paths), **kw)
+    ours = ht.meta_hypertune(name, meta, _ours(cache_paths[:2], "torch"),
+                             **kw)
+    ref = ref_ht.meta_hypertune(name, meta, _ref(cache_paths[:2]), **kw)
     assert ours.best_hyperparams == ref.best_hyperparams
     assert ours.best_score == ref.best_score
     assert ours.evaluated == ref.evaluated and len(ours.evaluated) == 5
@@ -163,6 +201,16 @@ def test_cli_hypertune_and_meta_take_the_new_strategies(cache_paths):
               "--quiet")
     assert "(found by simulated_annealing)" in out
     assert "after 3 of 81 grid points" in out
+    out = run("meta", "--strategy", "genetic_algorithm", "--meta-strategy",
+              "dual_annealing", "--table3-grid", "--max-hp-evals", "3",
+              "--cache", cache_paths[1], "--repeats", "1", "--device", "cpu",
+              "--quiet")
+    assert "(found by dual_annealing)" in out
+    assert "after 3 of 108 grid points" in out
+    out = run("simulate", "--strategy", "mls", "--cache", cache_paths[1],
+              "--repeats", "2", "--device", "cpu")
+    assert "[mls x2 repeats, 1 spaces, engine torch on cpu]" in out
+    assert "drive: host" in out
     for command in ("record", "simulate", "hypertune", "meta"):
         with pytest.raises(SystemExit), \
                 contextlib.redirect_stdout(io.StringIO()) as buf:
