@@ -49,7 +49,8 @@ Phases (any failure ends the script with a non-zero exit):
      timed; the SSD scan at its test shapes (chunks 32, 64, 128), at a
      state of 256 and P 80 (chunks 64, 512) and at mamba2-130m's width (24
      heads x 8 sequences of 4096, P 64, N 128) at chunks 128, 64 and 512,
-     within 3e-3, each timed whole and pass by pass (chunk states, state
+     within 3e-3 (the final state too, at the test shapes and at chunk
+     128), each timed whole and pass by pass (chunk states, state
      pass, chunk outputs) beside the operations bound and the chunked
      algorithm's floor; the budget scan over 1024 runs of full-space
      permutations of the GEMM's 10,140 configs with budgets that run out
@@ -106,16 +107,39 @@ Phases (any failure ends the script with a non-zero exit):
      extended grid with dual annealing as the meta-strategy (through the
      thread bridge; 50 configurations, 3 repeats, journaled), torch
      engine then numpy engine, every score and the best configuration
-     bit-identical, no bridge thread left.
+     bit-identical, no bridge thread left;
+  7. the main path, part four: serving zamba2-1.2b at full width
+     (``SERVE_ARCH``; 38 Mamba2 layers, 6 calls of the shared attention
+     block a prefill), random float32 weights from a seeded generator,
+     cast to bf16 where used: (a) the model built on the card; (b) one
+     prefill of the 4 x 1024 prompts with the inputs of its first SSD
+     call and its first flash-attention call captured, each kernel held
+     against its plain version on the card at those shapes (the SSD's y
+     and final state within 3e-3, attention within the bf16 RTOL), timed
+     beside the plain version, SDPA and the bound, and the prefill's
+     launches exactly 6 and 38; (c) prefill of 1023 tokens against
+     ``forward`` (0.05) and one decode step against ``forward``'s last
+     position (0.3 of the logits' spread), tests/test_models.py's
+     tolerances; (d) ``ServingEngine.generate`` of 4 requests of 1024
+     tokens, 32 new tokens each, max_len 2048, with every launch counter
+     set to 0 before and read after: exactly 6 flash-attention and 38
+     SSD launches and no other; (e) prefill ms and decode ms a token by
+     CUDA events, tokens/s, peak memory, and the kernels' share of a
+     prefill's device time by ``torch.profiler`` with its largest
+     kernels, each beside the card's name and power limit.
 
 Before phase 5 every recording is checked to let a tuning run end
-(``ends_check``); phases 5 and 6 each fail past a wall-clock limit. The
-budget-scan launches of phases 5-6 are printed by strategy and campaign.
+(``ends_check``); phases 5, 6 and 7 each fail past a wall-clock limit.
+The budget-scan launches of phases 5-6 are printed by strategy and
+campaign.
 
 Kernel launch counters are set to 0 just before phase 4 and read just
-after phase 6; each kernel must have launched there. The line before the
-last is the JSON summary of every kernel; the last line is the device
-record ``{"ok": true, "device": {...}}``.
+after phase 6, and again just before phase 7's (d) and read just after
+it; each kernel must have launched in phases 4-6, and flash attention
+and the SSD exactly once an attention site and a Mamba layer in (d).
+The line before the last is the JSON summary of every kernel, its
+launches those of both main paths; the last line is the device record
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -225,6 +249,12 @@ SCORE_LIMIT_S = 300          # phase 5 fails past this wall-clock limit
 HYPERTUNE_REPEATS = 3        # the paper's 25, cut to fit the time limit
 HYPERTUNE_LIMIT_S = 300      # phase 6 fails past this wall-clock limit
 META_EVALS = 50              # phase 6's meta campaign: GA configs scored
+# phase 7: zamba2-1.2b (src/repro_torch/configs/zamba2_1_2b.py) at full
+# width, 38 Mamba2 layers and 6 shared-attention calls a prefill
+SERVE_ARCH = "zamba2-1.2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 4, 1024, 32, 2048
+SERVE_LIMIT_S = 180          # phase 7 fails past this wall-clock limit
+PROFILE_TOP = 12             # kernels listed by device time of a prefill
 
 
 def fail(msg: str) -> None:
@@ -834,9 +864,14 @@ def check_ssd(device: str) -> dict:
         dt = softplus(randn(rng, (bh, l), device)) * 0.1
         a = -softplus(randn(rng, (bh,), device))
         for chunk in chunks:
-            agree(f"ssd {bh}x{l} P {pp} N {n} chunk {chunk}",
-                  ssd.ssd_scan(x, dt, a, b, c, chunk=chunk),
-                  ssd.ssd_plain(x, dt, a, b, c, chunk=chunk), SSD_TOL)
+            y, h = ssd.ssd_scan(x, dt, a, b, c, chunk=chunk,
+                                final_state=True)
+            y_ref, h_ref = ssd.ssd_plain(x, dt, a, b, c, chunk=chunk,
+                                         final_state=True)
+            agree(f"ssd {bh}x{l} P {pp} N {n} chunk {chunk}", y, y_ref,
+                  SSD_TOL)
+            agree(f"ssd {bh}x{l} P {pp} N {n} chunk {chunk} final state", h,
+                  h_ref, SSD_TOL)
     p = HUB_PROBLEMS["ssd"]
     bh, l, pp, n = p["bh"], p["seq"], p["p"], p["n"]
     args = ssd.live_inputs(p, device)
@@ -864,6 +899,10 @@ def check_ssd(device: str) -> dict:
               f"(operations {ops_ms:.4f}, bytes {bytes_ms:.4f}), algorithm "
               f"floor {floor_ms:.4f} ms")
         if chunk == SSD_CHUNKS[0]:
+            agree(f"ssd {bh}x{l} P {pp} N {n} chunk {chunk} final state",
+                  ssd.ssd_scan(*args, chunk=chunk, final_state=True)[1],
+                  ssd.ssd_plain(*args, chunk=chunk, final_state=True)[1],
+                  SSD_TOL)
             row = kernel_row("ssd", "src/repro_torch/kernels/csrc/ssd.cu",
                              "src/repro/kernels/ssd.py:39", err, ms,
                              plain[0], ops_ms, bytes_ms, None)
@@ -1686,6 +1725,279 @@ def meta_campaign(caches, device: str, repeats: int, out_dir: pathlib.Path,
         signal.alarm(0)
 
 
+# ----------------------------------------------------------------- phase 7
+class Capture:
+    """Keep a copy of the inputs of the first call of a kernel wrapper
+    (``module.attr``) while the ``with`` block runs; the call itself goes
+    on to the wrapper."""
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr = module, attr
+        self.args = self.kwargs = None
+
+    def __enter__(self):
+        wrapped = getattr(self.module, self.attr)
+
+        def first(*args, **kwargs):
+            if self.args is None:
+                self.args = tuple(t.clone() for t in args)
+                self.kwargs = dict(kwargs)
+            return wrapped(*args, **kwargs)
+
+        setattr(self.module, self.attr, first)
+        self.wrapped = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.attr, self.wrapped)
+
+
+def device_profile(fn) -> dict:
+    """Device time in ms by kernel of one ``fn()`` (a prefill or a decode
+    step), from ``torch.profiler``'s CUDA kernel events: the
+    flash-attention kernel, the SSD's three, all kernels, the number of
+    kernel launches, and the ``PROFILE_TOP`` kernels that take most
+    (name, ms, launches); None where the trace holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kern:
+        return None
+
+    def ms(*names):
+        return sum(e.device_time_total for e in kern
+                   if not names or any(n in e.key for n in names)) / 1e3
+
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:PROFILE_TOP]
+    return {"attention": ms("attn_kernel"),
+            "ssd": ms("ssd_chunk_states", "ssd_state_pass",
+                      "ssd_chunk_outputs"), "all": ms(),
+            "launches": sum(e.count for e in kern),
+            "top": [(e.key, e.device_time_total / 1e3, e.count)
+                    for e in top]}
+
+
+def check_serve_attention(args: tuple, kwargs: dict) -> None:
+    """The first shared-attention call of a zamba2-1.2b prefill, as
+    captured: the kernel against ``attention_plain`` (bf16 RTOL), timed
+    beside the plain version, SDPA and the operations bound."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = args
+    bh, s, d = q.shape
+    agree(f"serve attention {bh}x{s}x{d} bf16 causal tiles "
+          f"({kwargs['block_q']},{kwargs['block_kv']})",
+          fa.flash_attention(q, k, v, **kwargs).float(),
+          fa.attention_plain(q, k, v, causal=kwargs["causal"],
+                             window=kwargs["window"]).float(),
+          RTOL[torch.bfloat16])
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kwargs))
+    plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, causal=True))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(q[None], k[None], v[None],
+                                      is_causal=True))
+    flops = 4.0 * bh * s * (s + 1) / 2 * d
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = (nbytes(q, k, v) + nbytes(q)) / PEAK_BYTES * 1e3
+    print(f"  serve attention {bh}x{s}x{d} bf16: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f} at "
+          f"the bf16 rate, bytes {bytes_ms:.4f})")
+
+
+def check_serve_ssd(args: tuple, kwargs: dict, heads: int,
+                    layers: int) -> None:
+    """The first Mamba layer's SSD call of a zamba2-1.2b prefill, as
+    captured: y and the final state against ``ssd_plain`` (3e-3), timed
+    pass by pass beside the plain version and the bound. The route copies
+    B and C, (B, S, N) in the model, once per head of ``heads``: the bound
+    counts them at the model's size, and the copies are timed apart, for
+    one layer and for the ``layers`` of a prefill."""
+    from repro_torch.kernels import ssd
+    x, dt, a, b, c = args
+    bh, l, pp = x.shape
+    n, chunk = b.shape[-1], kwargs["chunk"]
+    bsz = bh // heads
+    b_model, c_model = (t.view(bsz, heads, l, n)[:, 0].contiguous()
+                        for t in (b, c))
+    y, h = ssd.ssd_scan(*args, chunk=chunk, final_state=True)
+    y_ref, h_ref = ssd.ssd_plain(*args, chunk=chunk, final_state=True)
+    agree(f"serve ssd {bh}x{l} P {pp} N {n} chunk {chunk}: y", y, y_ref,
+          SSD_TOL)
+    agree(f"serve ssd {bh}x{l} P {pp} N {n} chunk {chunk}: final state", h,
+          h_ref, SSD_TOL)
+    ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk, final_state=True))
+    passes = ssd_pass_ms(args, chunk)
+    plain_ms = time_ms(lambda: ssd.ssd_plain(*args, chunk=chunk,
+                                             final_state=True))
+    problem = {"bh": bh, "seq": l, "p": pp, "n": n}
+    ops_ms = ssd.needed_flops(**problem) / PEAK_F32_FLOPS * 1e3
+    floor_ms = ssd.chunked_flops(**problem, chunk=chunk) / PEAK_F32_FLOPS \
+        * 1e3
+    bytes_ms = (nbytes(x, dt, a, b_model, c_model) + nbytes(y, h)) \
+        / PEAK_BYTES * 1e3
+    # the route's per-head copies, as models/mamba2.py's _ssd_chunked
+    expand_ms = time_ms(lambda: [
+        t[:, None].expand(bsz, heads, l, n).reshape(bh, l, n).contiguous()
+        for t in (b_model, c_model)])
+    print(f"  serve ssd {bh}x{l} P {pp} N {n} chunk {chunk}: kernels "
+          f"{ms:.4f} ms (passes without the final state: chunk states "
+          f"{passes[0]:.4f}, state pass {passes[1]:.4f}, chunk outputs "
+          f"{passes[2]:.4f}), plain {plain_ms:.4f} ms, bound "
+          f"{max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f}, bytes "
+          f"{bytes_ms:.4f}, B and C at the model's {bsz}x{l}x{n}), "
+          f"algorithm floor {floor_ms:.4f} ms; the route's copies of B and "
+          f"C per head ({heads}x, {nbytes(b, c) / 1e6:.1f} MB) "
+          f"{expand_ms:.4f} ms a layer, {expand_ms * layers:.3f} ms over "
+          f"{layers} layers")
+
+
+def serve(device: str, card: str, limit_s: int) -> dict:
+    """Phase 7: serve zamba2-1.2b at full width (random weights from a
+    seeded generator) through ``ServingEngine``. Returns the phase's
+    kernel launches (flash attention and SSD) on its main path, which is
+    (d). Fails past ``limit_s`` seconds of wall clock."""
+    from repro_torch.configs import get_config
+    from repro_torch.inference.engine import Request, ServingEngine
+    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.mamba2 import dims
+    time_limit(7, limit_s)
+    try:
+        cfg = get_config(SERVE_ARCH)
+        sites = cfg.n_layers // cfg.shared_attn_every
+        t0 = time.perf_counter()
+        model = tf.init_params(
+            cfg, torch.Generator(device=device).manual_seed(0),
+            device=device)
+        engine = ServingEngine(cfg, model, max_len=SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"  (a) {cfg.name} at full width: {n_params:,} float32 "
+              f"parameters ({n_params * 4 / 1e9:.3f} GB), built in "
+              f"{time.perf_counter() - t0:.2f} s; "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+        gen = torch.Generator(device=device).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                               generator=gen, device=device)
+        # (b) the first Mamba layer's and the first shared attention's
+        # kernel inputs, captured from one prefill
+        before = (fa.launches, ssd.launches)
+        with Capture(fa, "flash_attention") as attn, \
+                Capture(ssd, "ssd_scan") as scan, torch.inference_mode():
+            tf.prefill(cfg, model, {"tokens": tokens}, SERVE_MAX_LEN)
+        made = (fa.launches - before[0], ssd.launches - before[1])
+        print(f"  (b) one prefill of {SERVE_BATCH} x {SERVE_PROMPT}: "
+              f"{made[0]} flash-attention and {made[1]} SSD launches")
+        if made != (sites, cfg.n_layers):
+            fail(f"serve: a prefill made {made} launches, not "
+                 f"({sites}, {cfg.n_layers})")
+        with torch.inference_mode():
+            check_serve_attention(attn.args, attn.kwargs)
+            check_serve_ssd(scan.args, scan.kwargs, dims(cfg)[1],
+                            cfg.n_layers)
+            # (c) prefill of s - 1 tokens and one decode step against
+            # forward (tests/test_models.py:73-79's tolerances)
+            full = tf.forward(cfg, model, {"tokens": tokens})
+            last, cache, n = tf.prefill(
+                cfg, model, {"tokens": tokens[:, :-1]}, SERVE_MAX_LEN)
+            step, _ = tf.decode_step(cfg, model, cache, tokens[:, -1:], n)
+            err_last = (last - full[:, -2]).abs().max().item()
+            spread = full[:, -1].std().item() + 1e-6
+            err_step = (step - full[:, -1]).abs().max().item()
+            ok = (bool(torch.isfinite(full).all()) and err_last < 0.05
+                  and err_step / spread < 0.3)
+            print(f"  (c) prefill of {SERVE_PROMPT - 1} tokens against "
+                  f"forward: max |err| {err_last:.6g} (limit 0.05); one "
+                  f"decode step: max |err| {err_step:.6g}, "
+                  f"{err_step / spread:.4f} of the logits' spread "
+                  f"{spread:.4f} (limit 0.3) {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail("serve: prefill and decode disagree with forward")
+            # one more step, at the next position, with its position on
+            # the card as the engine holds it: the card's busy share and
+            # launches against the step's time (rewritten in place)
+            pos = torch.full((SERVE_BATCH,), n + 1, device=device)
+
+            def one_step():
+                return tf.decode_step(cfg, model, cache, tokens[:, -1:], pos)
+
+            step_ms, lo, hi, host_ms = spread_ms(one_step)
+            dprof = device_profile(one_step)
+            busy = ("not measured (the profiler traced no kernel)"
+                    if dprof is None else
+                    f"kernels {dprof['all']:.3f} ms of device time "
+                    f"({dprof['all'] / step_ms:.3f} of the step) in "
+                    f"{dprof['launches']} launches, "
+                    f"{step_ms * 1e3 / dprof['launches']:.2f} us of step "
+                    f"a launch")
+            print(f"  (c) [{card}] a decode step at batch {SERVE_BATCH}: "
+                  f"{step_ms:.3f} ms (CUDA events, median of 7, "
+                  f"{lo:.3f}-{hi:.3f}; host {host_ms:.3f} ms until it "
+                  f"returns); {busy}")
+            del full, cache
+        # (d) the main path: requests through the serving engine
+        reqs = [Request(prompt=row, max_new_tokens=SERVE_NEW)
+                for row in tokens.tolist()]
+        for mod in ALL_KERNELS.values():
+            mod.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = engine.generate(reqs)
+        wall = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t = engine.timings
+        new = sum(len(o) for o in outs)
+        device_s = (t["prefill_ms"] + t["decode_ms"]) / 1e3
+        prompt_rate = SERVE_BATCH * SERVE_PROMPT / t["prefill_ms"] * 1e3
+        print(f"  (d) {SERVE_BATCH} requests of {SERVE_PROMPT} tokens, "
+              f"{SERVE_NEW} new each, max_len {SERVE_MAX_LEN}: launches "
+              f"{launches}")
+        if launches != {**{k: 0 for k in launches}, "flash_attention": sites,
+                        "ssd": cfg.n_layers}:
+            fail(f"serve: one generate made {launches} kernel launches")
+        if [len(o) for o in outs] != [SERVE_NEW] * SERVE_BATCH or not all(
+                0 <= x < cfg.vocab for o in outs for x in o):
+            fail("serve: the engine returned malformed tokens")
+        print(f"  (e) [{card}] prefill {t['prefill_ms']:.3f} ms; decode "
+              f"{t['decode_ms'] / t['steps']:.4f} ms a token "
+              f"({t['steps']} steps of batch {SERVE_BATCH}); "
+              f"{new / device_s:.1f} tokens/s generated over prefill + "
+              f"decode ({prompt_rate:.0f} prompt tokens/s in prefill); "
+              f"host wall {wall:.3f} s; peak "
+              f"memory {peak:.3f} GB")
+        with torch.inference_mode():
+            prof = device_profile(lambda: tf.prefill(
+                cfg, model, {"tokens": tokens}, SERVE_MAX_LEN))
+            pre_ms = time_ms(lambda: tf.prefill(
+                cfg, model, {"tokens": tokens}, SERVE_MAX_LEN), reps=5)
+        if prof is None:
+            print(f"  (e) [{card}] kernels' share of prefill: not measured "
+                  f"(the profiler traced no kernel)")
+        else:
+            print(f"  (e) [{card}] prefill {pre_ms:.3f} ms (CUDA events, "
+                  f"median of 5); device time by torch.profiler: all "
+                  f"kernels {prof['all']:.3f} ms ({prof['all'] / pre_ms:.3f}"
+                  f" of the prefill, so {1 - prof['all'] / pre_ms:.3f} "
+                  f"idle), flash attention {prof['attention']:.3f} ms "
+                  f"({sites} launches, {prof['attention'] / pre_ms:.3f}), "
+                  f"SSD {prof['ssd']:.3f} ms ({cfg.n_layers} launches, "
+                  f"{prof['ssd'] / pre_ms:.3f})")
+            for key, ms, count in prof["top"]:
+                print(f"    {ms:9.3f} ms {count:5d}x {key[:90]}")
+        return {"flash_attention": launches["flash_attention"],
+                "ssd": launches["ssd"]}
+    finally:
+        signal.alarm(0)
+
+
 # ----------------------------------------------------------------- driver
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1782,10 +2094,18 @@ def main() -> int:
     print(f"  [phase 6: {time.perf_counter() - t0:.1f} s]")
     launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
     launches["budget_scan"] = rp.launches
-    print(f"  launches on the main path: {launches}")
+    print(f"  launches on the main path of phases 4-6: {launches}")
     print(f"  budget-scan launches of phases 5-6 by strategy: {split}")
     if not all(launches.values()):
         fail(f"a kernel of the main path never launched: {launches}")
+    print(f"[7] main path: serving {SERVE_ARCH} at full width, "
+          f"{SERVE_BATCH} requests of {SERVE_PROMPT} tokens")
+    t0 = time.perf_counter()
+    served = serve(device, smi.stdout.strip(), SERVE_LIMIT_S)
+    print(f"  [phase 7: {time.perf_counter() - t0:.1f} s]")
+    for name, n in served.items():
+        launches[name] += n
+    print(f"  launches on the main paths (phases 4-6 and 7): {launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -15,14 +15,18 @@
 //
 //   1. ssd_chunk_states, one block a (bh, chunk): the chunk's cum, a block
 //      scan of dt a (each product rounded, then added), written to a
-//      (BH, L) scratch; then, for every chunk but the last, its state
+//      (BH, L) scratch; then, for every chunk but the last (and the last
+//      too when the caller asks for the final state), its state
 //      S_c = sum_j exp(total_c - cum_j) dt_j B_j^T X_j, an (N, P) tile
 //      written to a (BH, L/Q, N, P) scratch. The block walks the tile in
 //      kSliceN x kSliceP pieces (one at mamba2-130m's N 128, P 64), so the
 //      block that writes cum also reads it back, behind a barrier.
 //   2. ssd_state_pass, one thread an (bh, n, p) entry: h_0 = 0, h_{c+1} =
 //      exp(total_c) h_c + S_c, writing each chunk's incoming state h_c in
-//      place of S_c. Bytes-bound; 1.57 M independent entries at full width.
+//      place of S_c, and, when asked, the state after the last chunk to a
+//      (BH, N, P) output: the decode cache a model's prefill hands on (the
+//      Pallas kernel keeps that state in VMEM scratch and returns only y).
+//      Bytes-bound; 1.57 M independent entries at full width.
 //   3. ssd_chunk_outputs, one block a (bh, chunk, 64-row sub-tile of the
 //      chunk, 64-column slice of P), launched heaviest first (the last
 //      sub-tiles of a chunk do the most work): the inter-chunk term
@@ -181,7 +185,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 ssd_chunk_states(const float* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ a, const float* __restrict__ b,
                  float* cum, float* __restrict__ states, int l, int p, int n,
-                 int chunk, int vec_n, int vec_p) {
+                 int chunk, int vec_n, int vec_p, int with_last) {
   extern __shared__ __align__(16) float smem[];
   float* wsum = smem + kSlots1 * kSlot1;  // [kThreads / 32] warp totals
   float* total_at = wsum + kThreads / 32;  // the chunk's last cum
@@ -194,7 +198,8 @@ ssd_chunk_states(const float* __restrict__ x, const float* __restrict__ dt,
   const size_t t0 = static_cast<size_t>(row) * l +
                     static_cast<size_t>(ci) * chunk;  // first step, flat
   const float a_row = a[row];
-  const bool last_chunk = ci == nc - 1;  // no chunk reads its state
+  // no chunk reads the last chunk's state; the final state does
+  const bool no_state = ci == nc - 1 && !with_last;
 
   const int ty = tid / 8;
   const int tx = tid % 8;
@@ -235,7 +240,7 @@ ssd_chunk_states(const float* __restrict__ x, const float* __restrict__ dt,
           expf(total - w_cum) * w_dt;
   };
 
-  if (!last_chunk)  // the first slices' copies fly while cum is scanned
+  if (!no_state)  // the first slices' copies fly while cum is scanned
     for (int u = 0; u < kSlots1 - 1; ++u) copy_slice(u);
   // cum: pieces of kThreads steps, each an inclusive warp scan, the warp
   // totals before it and the carry of the earlier pieces; every thread
@@ -258,7 +263,7 @@ ssd_chunk_states(const float* __restrict__ x, const float* __restrict__ dt,
     for (int w = 0; w < kThreads / 32; ++w) carry = __fadd_rn(carry, wsum[w]);
     __syncthreads();  // wsum is rewritten by the next piece
   }
-  if (last_chunk) return;
+  if (no_state) return;
   total = *total_at;  // and cum in device memory: behind the barrier
   if (tid < kK1)
     for (int u = 0; u < kSlots1 - 1; ++u) {
@@ -332,12 +337,13 @@ ssd_chunk_states(const float* __restrict__ x, const float* __restrict__ dt,
 // ------------------------------------------------------------------ pass 2
 // One thread V (bh, n, p) entries (V = 4 where N P is a multiple of 4, as
 // one float4): walks the chunks in order, eight loads ahead, writing each
-// chunk's incoming state over its S_c (the last chunk's S_c was not
-// computed and is not read).
+// chunk's incoming state over its S_c. Without `h_final` the last chunk's
+// S_c was not computed and is not read; with it, the state after the last
+// chunk goes to h_final[bh][n][p].
 template <int V>
 __global__ void __launch_bounds__(kPassThreads)
 ssd_state_pass(const float* __restrict__ cum, float* __restrict__ states,
-               int bh, int l, int chunk, int np) {
+               float* __restrict__ h_final, int bh, int l, int chunk, int np) {
   static_assert(V == 1 || V == 4, "a float or a float4");
   const size_t e =
       (static_cast<size_t>(blockIdx.x) * kPassThreads + threadIdx.x) * V;
@@ -346,6 +352,7 @@ ssd_state_pass(const float* __restrict__ cum, float* __restrict__ states,
   const int row = static_cast<int>(e / np);
   float* s = states + static_cast<size_t>(row) * nc * np + e % np;
   const float* last = cum + static_cast<size_t>(row) * l + chunk - 1;
+  const int n_read = h_final ? nc : nc - 1;  // chunks whose S_c was computed
   float h[V] = {};
   for (int c0 = 0; c0 < nc; c0 += 8) {
     float sv[8][V], decay[8];
@@ -354,14 +361,14 @@ ssd_state_pass(const float* __restrict__ cum, float* __restrict__ states,
       const int c = c0 + u;
       const float* src = s + static_cast<size_t>(c) * np;
       if constexpr (V == 4) {
-        const float4 v = c < nc - 1 ? *reinterpret_cast<const float4*>(src)
+        const float4 v = c < n_read ? *reinterpret_cast<const float4*>(src)
                                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         sv[u][0] = v.x;
         sv[u][1] = v.y;
         sv[u][2] = v.z;
         sv[u][3] = v.w;
       } else {
-        sv[u][0] = c < nc - 1 ? *src : 0.0f;
+        sv[u][0] = c < n_read ? *src : 0.0f;
       }
       decay[u] = c < nc ? expf(last[static_cast<size_t>(c) * chunk]) : 0.0f;
     }
@@ -377,6 +384,13 @@ ssd_state_pass(const float* __restrict__ cum, float* __restrict__ states,
 #pragma unroll
       for (int v = 0; v < V; ++v) h[v] = fmaf(decay[u], h[v], sv[u][v]);
     }
+  }
+  if (h_final) {
+    if constexpr (V == 4)
+      *reinterpret_cast<float4*>(h_final + e) =
+          make_float4(h[0], h[1], h[2], h[3]);
+    else
+      h_final[e] = h[0];
   }
 }
 
@@ -656,12 +670,15 @@ extern "C" {
 // The three passes of one scan, each launched on `stream` and followed by
 // cudaGetLastError() (0 when the launch was accepted); none synchronises.
 // x and y are (bh, l, p), dt (bh, l), a (bh,), b and c (bh, l, n); cum is a
-// (bh, l) and states a (bh, l / chunk, n, p) float32 scratch. Each returns
+// (bh, l) and states a (bh, l / chunk, n, p) float32 scratch; h_final, which
+// may be null, the (bh, n, p) state after the last step. A scan that wants
+// it passes with_last = 1 to pass 1 and h_final to pass 2. Each returns
 // cudaErrorInvalidValue, launching nothing, for shapes outside `valid`.
 // Dtypes, contiguity and devices are checked by the Python wrapper.
 int repro_ssd_chunk_states(const void* x, const void* dt, const void* a,
                            const void* b, void* cum, void* states, int bh,
-                           int l, int p, int n, int chunk, void* stream) {
+                           int l, int p, int n, int chunk, int with_last,
+                           void* stream) {
   if (!valid(bh, l, p, n, chunk))
     return static_cast<int>(cudaErrorInvalidValue);
   if (const int e = configure()) return e;
@@ -672,28 +689,28 @@ int repro_ssd_chunk_states(const void* x, const void* dt, const void* a,
       static_cast<const float*>(x), static_cast<const float*>(dt),
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<float*>(cum), static_cast<float*>(states), l, p, n, chunk,
-      vec_n, vec_p);
+      vec_n, vec_p, with_last);
   return static_cast<int>(cudaGetLastError());
 }
 
-int repro_ssd_state_pass(const void* cum, void* states, int bh, int l,
-                         int p, int n, int chunk, void* stream) {
+int repro_ssd_state_pass(const void* cum, void* states, void* h_final, int bh,
+                         int l, int p, int n, int chunk, void* stream) {
   if (!valid(bh, l, p, n, chunk))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long entries = static_cast<long long>(bh) * n * p;
-  const bool vec = n * p % 4 == 0 && aligned(states);
+  const bool vec = n * p % 4 == 0 && aligned(states) && aligned(h_final);
   const int per_block = kPassThreads * (vec ? 4 : 1);
   const unsigned grid =
       static_cast<unsigned>((entries + per_block - 1) / per_block);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec)
     ssd_state_pass<4><<<grid, kPassThreads, 0, st>>>(
-        static_cast<const float*>(cum), static_cast<float*>(states), bh, l,
-        chunk, n * p);
+        static_cast<const float*>(cum), static_cast<float*>(states),
+        static_cast<float*>(h_final), bh, l, chunk, n * p);
   else
     ssd_state_pass<1><<<grid, kPassThreads, 0, st>>>(
-        static_cast<const float*>(cum), static_cast<float*>(states), bh, l,
-        chunk, n * p);
+        static_cast<const float*>(cum), static_cast<float*>(states),
+        static_cast<float*>(h_final), bh, l, chunk, n * p);
   return static_cast<int>(cudaGetLastError());
 }
 

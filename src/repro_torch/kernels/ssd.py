@@ -6,6 +6,9 @@ Port of ``src/repro/kernels/ssd.py``. The Pallas TPU kernel
 says what bounds it on the H100 and what the design does about it): chunk
 states, a state pass over the chunks, chunk outputs. ``ssd_scan`` here is
 their wrapper and ``ssd_plain`` the same three passes in batched PyTorch.
+Both can also return the state after the last step (``final_state``),
+which the Pallas kernel keeps in VMEM scratch and the reference model's
+``_ssd_chunked`` returns for the decode cache; the state pass writes it.
 The search space, the problem sizes and the cost-model ``workload()`` are
 the reference's, unchanged, so config ids agree across the two packages.
 
@@ -68,26 +71,31 @@ def _lib() -> ctypes.CDLL:
             raise RuntimeError(f"csrc/ssd.cu limits "
                                f"{tuple(x.value for x in got)} disagree "
                                f"with the wrapper's {want}")
-        pointers = {"repro_ssd_chunk_states": 6, "repro_ssd_state_pass": 2,
-                    "repro_ssd_chunk_outputs": 7}
+        # pointers, then bh, l, p, n, chunk (pass 1 also with_last), then
+        # the stream
+        args = {"repro_ssd_chunk_states": (6, 6),
+                "repro_ssd_state_pass": (3, 5),
+                "repro_ssd_chunk_outputs": (7, 5)}
         for name in PASSES:
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * pointers[name]
-                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            pointers, ints = args[name]
+            fn.argtypes = ([ctypes.c_void_p] * pointers
+                           + [ctypes.c_int] * ints + [ctypes.c_void_p])
     return lib
 
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-              b: torch.Tensor, c: torch.Tensor, *,
-              chunk: int = 128) -> torch.Tensor:
+              b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+              final_state: bool = False):
     """The same function in plain PyTorch, as the kernels' three passes
     over all BH rows and chunks at once: each chunk's cum and state
     ``S_c = (B o exp(total_c - cum) dt)^T X``; the one loop, over chunks,
     ``h_{c+1} = exp(total_c) h_c + S_c`` from zero; then every chunk's
     intra-chunk term ``((C B^T) o exp(cum_i - cum_j)[j <= i] o dt_j) X``
     (``torch.where`` keeps the overflowing upper triangle out) and
-    inter-chunk term ``exp(cum) C h_c``."""
+    inter-chunk term ``exp(cum) C h_c``. With ``final_state`` it returns
+    ``(y, h)``, h the (BH, N, P) float32 state after the last chunk."""
     bh, l, p = x.shape
     n = b.shape[-1]
     nc = l // chunk
@@ -109,20 +117,23 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     weights = (cc @ bc.transpose(-1, -2)) * torch.where(
         mask, torch.exp(li), 0.0) * dtc[..., None, :]
     y = weights @ xc + torch.exp(cum)[..., None] * (cc @ torch.stack(h_in, 1))
-    return y.reshape(bh, l, p).to(x.dtype)
+    y = y.reshape(bh, l, p).to(x.dtype)
+    return (y, h) if final_state else y
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
-             marks: Sequence | None = None) -> torch.Tensor:
+             final_state: bool = False, marks: Sequence | None = None):
     """SSD scan for a flattened (batch·heads) leading dim, float32, the
     reference's layout: x (BH, L, P); dt (BH, L); a (BH,); b/c (BH, L, N).
-    Returns y like x: the three CUDA kernels for tensors on the card (a
-    (BH, L) cum and a (BH, L / chunk, N, P) state scratch allocated here),
-    ``ssd_plain`` for tensors on the CPU. Raises ``ConfigRejected`` for a
-    problem ``fits`` refuses, on either device. ``marks``, four CUDA
-    events, are recorded before the first kernel and after each (so a
-    caller can time the passes)."""
+    Returns y like x, or ``(y, h)`` with ``final_state``, h the (BH, N, P)
+    float32 state after the last step (pass 1 then also computes the last
+    chunk's state, and the state pass writes h): the three CUDA kernels
+    for tensors on the card (a (BH, L) cum and a (BH, L / chunk, N, P)
+    state scratch allocated here), ``ssd_plain`` for tensors on the CPU.
+    Raises ``ConfigRejected`` for a problem ``fits`` refuses, on either
+    device. ``marks``, four CUDA events, are recorded before the first
+    kernel and after each (so a caller can time the passes)."""
     global launches
     bh, l, p = x.shape
     n = b.shape[-1]
@@ -144,7 +155,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if len({t.device for t in (x, dt, a, b, c)}) != 1:
         raise ValueError("ssd_scan operands lie on different devices")
     if x.device.type == "cpu":
-        return ssd_plain(x, dt, a, b, c, chunk=chunk)
+        return ssd_plain(x, dt, a, b, c, chunk=chunk, final_state=final_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or the CPU, not {x.device}")
     if not all(t.is_contiguous() for t in (x, dt, a, b, c)):
@@ -154,19 +165,23 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     cum = torch.empty((bh, l), dtype=torch.float32, device=x.device)
     states = torch.empty((bh, l // chunk, n, p), dtype=torch.float32,
                          device=x.device)
+    h = (torch.empty((bh, n, p), dtype=torch.float32, device=x.device)
+         if final_state else None)
+    shape = (bh, l, p, n, chunk)
+    calls = (((x, dt, a, b, cum, states), (*shape, int(final_state))),
+             ((cum, states, h), shape), ((x, dt, b, c, cum, states, y), shape))
     stream = cuda.stream_handle(x.device)
-    shape = (bh, l, p, n, chunk, stream)
-    pointers = ((x, dt, a, b, cum, states), (cum, states),
-                (x, dt, b, c, cum, states, y))
     if marks:
         marks[0].record()
-    for i, (name, ptrs) in enumerate(zip(PASSES, pointers)):
-        rc = getattr(lib, name)(*(t.data_ptr() for t in ptrs), *shape)
+    for i, (name, (ptrs, ints)) in enumerate(zip(PASSES, calls)):
+        rc = getattr(lib, name)(
+            *(None if t is None else t.data_ptr() for t in ptrs), *ints,
+            stream)
         cuda.check_launch(lib, rc, f"ssd_scan ({name})")
         if marks:
             marks[i + 1].record()
     launches += 1
-    return y
+    return (y, h) if final_state else y
 
 
 # ----------------------------------------------------------- live recording

@@ -1,0 +1,386 @@
+"""Model composition for the dense, ssm and hybrid families.
+
+Port of ``src/repro/models/transformer.py``. Families and their stacks:
+
+  dense   [attn + mlp] × L      (gemma3: a per-layer global flag switches
+                                 the mask's window off, not the code)
+  ssm     [mamba2] × L
+  hybrid  ([mamba2] × k + shared attn block) × groups + tail
+          (zamba2: one shared transformer block reused at every site)
+
+Entry points, with the reference's names and arguments:
+  ``init_params``                      the ``Model`` (fp32 weights)
+  ``forward``                          teacher-forced logits
+  ``init_cache`` / ``prefill`` / ``decode_step``   serving
+
+What changed:
+
+  * Parameters are a ``Model`` of ``nn.Module`` blocks (``Block``,
+    ``MambaBlock``, each with ``forward``, ``prefill`` and ``decode``),
+    and layers run as a Python loop over them, not a ``lax.scan`` over
+    stacked parameters. Caches keep the reference's stacked layout
+    (``weights.from_reference`` maps the parameters).
+  * Prefill attention goes through the flash-attention kernel and every
+    Mamba layer through the SSD kernels (``attention.py``, ``mamba2.py``);
+    decode is plain PyTorch, as in the reference.
+  * ``decode_step`` writes the new token's k/v and Mamba states into the
+    cache in place and returns it (copying a (B, max_len) cache every
+    token would double decode's bytes); ``prefill`` computes the logits
+    of the last position only, the one it returns.
+  * ``init_params`` takes a ``torch.Generator`` and a device (the card
+    unless ``"cpu"`` is asked for). The weights are serving weights, with
+    no gradient: training, with the kernels' backward passes, is the next
+    slice. The ``moe``, ``audio`` and ``vlm`` families raise
+    ``NotImplementedError`` (ROADMAP Queue 1); ``remat`` and
+    ``pre_logits`` are training options and wait for it.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .. import cuda
+from ..configs.base import ArchConfig
+from .attention import blockwise_attention, decode_attention
+from .layers import (COMPUTE_DTYPE, Norm, apply_rope, dense_init,
+                     embed_init, param, rope_angles, softcap)
+from .mamba2 import Mamba, init_mamba_cache
+from .mlp import MLP
+
+CACHE_DTYPE = torch.bfloat16
+FAMILIES = ("dense", "ssm", "hybrid")
+
+
+# ----------------------------------------------------------------- attention
+class Attention(nn.Module):
+    """``make_attention`` + ``apply_attention`` (prefill, through the
+    kernel) + ``apply_attention_decode`` (plain)."""
+
+    def __init__(self, cfg: ArchConfig, gen=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        self.wq = param(dense_init(gen, d, h * dh, device=device))
+        self.wk = param(dense_init(gen, d, hkv * dh, device=device))
+        self.wv = param(dense_init(gen, d, hkv * dh, device=device))
+        self.wo = param(dense_init(gen, h * dh, d, scale=(h * dh) ** -0.5,
+                                   device=device))
+
+    def _project_qkv(self, x: torch.Tensor) -> tuple:
+        cfg = self.cfg
+        b, s, _ = x.shape
+        dt = x.dtype
+        q = (x @ self.wq.to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
+        k = (x @ self.wk.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+        v = (x @ self.wv.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+        return q, k, v
+
+    def forward(self, x, positions, *, window=None) -> tuple:
+        """Full-sequence causal attention. x: (B,S,D); positions: (B,S).
+        Returns (out, (k, v)), k after RoPE."""
+        q, k, v = self._project_qkv(x)
+        ang = rope_angles(self.cfg, positions)
+        q = apply_rope(q, ang)
+        k = apply_rope(k, ang)
+        out = blockwise_attention(q, k, v, causal=True, window=window)
+        b, s, _, _ = q.shape
+        return out.reshape(b, s, -1) @ self.wo.to(x.dtype), (k, v)
+
+    def decode(self, x, cache_k, cache_v, idx, *, window=None):
+        """Single step. x: (B,1,D); caches (B,Smax,Hkv,Dh), into which the
+        current token's k/v are written at the positions ``idx`` (B,), on
+        x's device, in place."""
+        q, k, v = self._project_qkv(x)
+        b = x.shape[0]
+        ang = rope_angles(self.cfg, idx[:, None])
+        q = apply_rope(q, ang)
+        k = apply_rope(k, ang)
+        rows = torch.arange(b, device=x.device)
+        cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
+        out = decode_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                               idx + 1, window=window)
+        return out.reshape(b, 1, -1) @ self.wo.to(x.dtype)
+
+
+# -------------------------------------------------------------- layer bodies
+class Block(nn.Module):
+    """A dense block: attention, then the MLP, each behind its norm."""
+
+    def __init__(self, cfg: ArchConfig, gen=None, device=None):
+        super().__init__()
+        self.norm1 = Norm(cfg, cfg.d_model, device)
+        self.attn = Attention(cfg, gen, device)
+        self.norm2 = Norm(cfg, cfg.d_model, device)
+        self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, gen, device)
+
+    def prefill(self, x, positions, *, window=None) -> tuple:
+        """(x, (k, v)) with k/v in the cache dtype."""
+        h, (k, v) = self.attn(self.norm1(x), positions, window=window)
+        x = x + h
+        x = x + self.mlp(self.norm2(x))
+        return x, (k.to(CACHE_DTYPE), v.to(CACHE_DTYPE))
+
+    def forward(self, x, positions, *, window=None):
+        return self.prefill(x, positions, window=window)[0]
+
+    def decode(self, x, cache_k, cache_v, idx, *, window=None):
+        x = x + self.attn.decode(self.norm1(x), cache_k, cache_v, idx,
+                                 window=window)
+        return x + self.mlp(self.norm2(x))
+
+
+class MambaBlock(nn.Module):
+    def __init__(self, cfg: ArchConfig, gen=None, device=None):
+        super().__init__()
+        self.norm = Norm(cfg, cfg.d_model, device)
+        self.mamba = Mamba(cfg, gen, device)
+
+    def prefill(self, x) -> tuple:
+        """(x, (conv_state, ssm_state))."""
+        h, cache = self.mamba(self.norm(x), return_cache=True)
+        return x + h, cache
+
+    def forward(self, x):
+        return x + self.mamba(self.norm(x))[0]
+
+    def decode(self, x, conv, ssm) -> tuple:
+        h, conv, ssm = self.mamba.decode(conv, ssm, self.norm(x))
+        return x + h, conv, ssm
+
+
+# ---------------------------------------------------------------------- model
+class Model(nn.Module):
+    """The parameters of one config, named as the reference's pytree:
+    ``embed``, ``final_norm``, ``unembed`` (untied only), and ``layers``
+    (dense, ssm) or ``mamba_groups`` ([n_groups][every]), ``mamba_tail``
+    and ``shared`` (hybrid)."""
+
+    def __init__(self, cfg: ArchConfig, gen=None, device=None):
+        super().__init__()
+        if cfg.family not in FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves the {', '.join(FAMILIES)} "
+                f"families; {cfg.family!r} waits in ROADMAP Queue 1")
+        self.cfg = cfg
+        self.embed = param(embed_init(gen, cfg.vocab, cfg.d_model, device))
+        self.final_norm = Norm(cfg, cfg.d_model, device)
+        self.unembed = (None if cfg.tie_embeddings else param(
+            dense_init(gen, cfg.d_model, cfg.vocab, device=device)))
+        if cfg.family == "dense":
+            self.layers = nn.ModuleList(Block(cfg, gen, device)
+                                        for _ in range(cfg.n_layers))
+        elif cfg.family == "ssm":
+            self.layers = nn.ModuleList(MambaBlock(cfg, gen, device)
+                                        for _ in range(cfg.n_layers))
+        else:
+            every = cfg.shared_attn_every
+            n_groups, tail = divmod(cfg.n_layers, every)
+            self.mamba_groups = nn.ModuleList(
+                nn.ModuleList(MambaBlock(cfg, gen, device)
+                              for _ in range(every))
+                for _ in range(n_groups))
+            self.mamba_tail = nn.ModuleList(MambaBlock(cfg, gen, device)
+                                            for _ in range(tail))
+            self.shared = Block(cfg, gen, device)
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
+                *, device=None) -> Model:
+    """A ``Model`` of ``cfg`` on ``device`` (the card unless ``"cpu"`` is
+    asked for; raises without CUDA otherwise), drawn from ``generator``
+    (default: seed 0 on that device)."""
+    dev = cuda.resolve_device(device)
+    gen = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(0)
+    return Model(cfg, gen, dev)
+
+
+# ------------------------------------------------------------------ helpers
+def _embed(cfg: ArchConfig, params: Model, tokens) -> torch.Tensor:
+    x = params.embed[tokens].to(COMPUTE_DTYPE)  # the rows, then the cast
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _unembed(cfg: ArchConfig, params: Model, x) -> torch.Tensor:
+    w = (params.embed.T if cfg.tie_embeddings
+         else params.unembed).to(x.dtype)
+    return softcap((x @ w).float(), cfg.logits_softcap)
+
+
+def _is_global_flags(cfg: ArchConfig):
+    """Per-layer global flags (gemma3: every ``global_every``-th), or
+    None."""
+    if cfg.global_every:
+        return [(i + 1) % cfg.global_every == 0 for i in range(cfg.n_layers)]
+    return None
+
+
+def _windows(cfg: ArchConfig) -> list:
+    """Each dense layer's attention window: none on a global layer."""
+    flags = _is_global_flags(cfg) or [False] * cfg.n_layers
+    return [None if g else cfg.window for g in flags]
+
+
+def _positions(cfg: ArchConfig, tokens) -> torch.Tensor:
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+
+
+# ------------------------------------------------------------------ forward
+def _layers(cfg: ArchConfig, params: Model, x, positions, collect: bool):
+    """Run the stack; with ``collect`` also return the caches' parts in
+    layer order: k/v of each attention site, (conv, ssm) of each Mamba
+    layer."""
+    kvs, mcs = [], []
+
+    def mamba(blk, x):
+        if not collect:
+            return blk(x)
+        x, mc = blk.prefill(x)
+        mcs.append(mc)
+        return x
+
+    def attend(blk, x, window):
+        if not collect:
+            return blk(x, positions, window=window)
+        x, kv = blk.prefill(x, positions, window=window)
+        kvs.append(kv)
+        return x
+
+    if cfg.family == "dense":
+        for blk, window in zip(params.layers, _windows(cfg)):
+            x = attend(blk, x, window)
+    elif cfg.family == "ssm":
+        for blk in params.layers:
+            x = mamba(blk, x)
+    else:
+        for group in params.mamba_groups:
+            for blk in group:
+                x = mamba(blk, x)
+            x = attend(params.shared, x, cfg.window)
+        for blk in params.mamba_tail:
+            x = mamba(blk, x)
+    return x, kvs, mcs
+
+
+def forward(cfg: ArchConfig, params: Model, batch: dict) -> torch.Tensor:
+    """Teacher-forced logits (B, S, V), float32."""
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens)
+    x, _, _ = _layers(cfg, params, x, _positions(cfg, tokens), False)
+    return _unembed(cfg, params, params.final_norm(x))
+
+
+# ====================================================================== serve
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               device=None) -> dict:
+    """Empty serving cache, in the reference's stacked layout: attention
+    k/v (sites, B, max_len, Hkv, Dh) bf16; Mamba conv (layers, B, K-1, C)
+    bf16 and ssm (layers, B, H, N, P) fp32 (hybrid: groups (n_groups,
+    every, ...), tail, shared)."""
+    dev = cuda.resolve_device(device)
+    hkv, dh, n_layers = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
+
+    def kv(n):
+        return {x: torch.zeros((n, batch, max_len, hkv, dh),
+                               dtype=CACHE_DTYPE, device=dev)
+                for x in ("k", "v")}
+
+    def mamba(*lead):
+        mc = init_mamba_cache(cfg, batch, dev)
+        return {x: t.expand(*lead, *t.shape).clone() for x, t in mc.items()}
+
+    if cfg.family == "dense":
+        return kv(n_layers)
+    if cfg.family == "ssm":
+        return mamba(n_layers)
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        g, tail = divmod(n_layers, every)
+        out = {"groups": mamba(g, every), "shared": kv(g)}
+        if tail:
+            out["tail"] = mamba(tail)
+        return out
+    raise NotImplementedError(f"{cfg.family!r} waits in ROADMAP Queue 1")
+
+
+def _mamba_caches(cache: dict) -> list:
+    """Views of each Mamba layer's (conv, ssm) in layer order."""
+    if "groups" not in cache:
+        return list(zip(cache["conv"], cache["ssm"])) if "conv" in cache \
+            else []
+    groups = cache["groups"]
+    out = [(groups["conv"][g, j], groups["ssm"][g, j])
+           for g in range(groups["conv"].shape[0])
+           for j in range(groups["conv"].shape[1])]
+    if "tail" in cache:
+        out += list(zip(cache["tail"]["conv"], cache["tail"]["ssm"]))
+    return out
+
+
+def _kv_caches(cache: dict) -> list:
+    """Views of each attention site's (k, v) in site order."""
+    kv = cache.get("shared", cache)
+    return list(zip(kv["k"], kv["v"])) if "k" in kv else []
+
+
+def prefill(cfg: ArchConfig, params: Model, batch: dict, max_len: int):
+    """Run the full-sequence path; return (last_logits (B, V), cache,
+    cache_len)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
+                         f"{max_len}")
+    x = _embed(cfg, params, tokens)
+    x, kvs, mcs = _layers(cfg, params, x, _positions(cfg, tokens), True)
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    for (kc, vc), (k, v) in zip(_kv_caches(cache), kvs):
+        kc[:, :s] = k
+        vc[:, :s] = v
+    for (conv, ssm), (c, h) in zip(_mamba_caches(cache), mcs):
+        conv.copy_(c)
+        ssm.copy_(h)
+    x = params.final_norm(x[:, -1:])
+    return _unembed(cfg, params, x)[:, 0], cache, s
+
+
+def decode_step(cfg: ArchConfig, params: Model, cache: dict, tokens,
+                cache_len):
+    """One token for the whole batch. tokens: (B, 1) integer.
+
+    Returns (logits (B, V), cache), the cache updated in place.
+    ``cache_len`` is the number of valid positions already in the cache
+    (an int, or a (B,) tensor; one on the tokens' device costs no copy
+    from the host, which would wait for the card)."""
+    x = _embed(cfg, params, tokens)
+    idx = torch.as_tensor(cache_len, device=tokens.device).broadcast_to(
+        tokens.shape[:1])
+    kvs, mcs = iter(_kv_caches(cache)), iter(_mamba_caches(cache))
+
+    def mamba(blk, x):
+        conv, ssm = next(mcs)
+        x, new_conv, new_ssm = blk.decode(x, conv, ssm)
+        conv.copy_(new_conv)
+        ssm.copy_(new_ssm)
+        return x
+
+    if cfg.family == "dense":
+        for blk, window in zip(params.layers, _windows(cfg)):
+            x = blk.decode(x, *next(kvs), idx, window=window)
+    elif cfg.family == "ssm":
+        for blk in params.layers:
+            x = mamba(blk, x)
+    else:
+        for group in params.mamba_groups:
+            for blk in group:
+                x = mamba(blk, x)
+            # the reference passes no window here (zamba2 has none)
+            x = params.shared.decode(x, *next(kvs), idx)
+        for blk in params.mamba_tail:
+            x = mamba(blk, x)
+    x = params.final_norm(x)
+    return _unembed(cfg, params, x)[:, 0], cache

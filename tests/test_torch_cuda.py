@@ -15,8 +15,12 @@ dedispersion's channel-order ``__fadd_rn``, as the plain versions
 compute);
 flash attention
 ``RTOL[dtype]`` (its card command: ``-k flash``) and the SSD scan 3e-3, tests/test_kernels.py's (online
-softmax and chunked sums reorder the adds); the budget scan, the replay
-engine and fused campaigns none — bit-identical.
+softmax and chunked sums reorder the adds), its final state too; the
+budget scan, the replay engine and fused campaigns none — bit-identical.
+The model's call sites (``models/attention.py``, ``models/mamba2.py``)
+run their kernels against the plain versions with the same tolerances,
+and a tiny model on the card against the CPU within 0.05, the tolerance
+tests/test_models.py gives the reference's prefill against its forward.
 """
 import dataclasses
 import random
@@ -515,10 +519,10 @@ def test_ssd_passes_refuse_shapes_outside_their_limits(card):
     buf = torch.zeros(1 << 16, device=card)
     ptr = buf.data_ptr()
     for l, n, chunk in ((64, 257, 32), (64, 8, 48), (64, 8, 0)):
-        shape = (2, l, 16, n, chunk, stream)
-        assert lib.repro_ssd_chunk_states(*[ptr] * 6, *shape) == 1
-        assert lib.repro_ssd_state_pass(*[ptr] * 2, *shape) == 1
-        assert lib.repro_ssd_chunk_outputs(*[ptr] * 7, *shape) == 1
+        shape = (2, l, 16, n, chunk)
+        assert lib.repro_ssd_chunk_states(*[ptr] * 6, *shape, 1, stream) == 1
+        assert lib.repro_ssd_state_pass(*[ptr] * 3, *shape, stream) == 1
+        assert lib.repro_ssd_chunk_outputs(*[ptr] * 7, *shape, stream) == 1
     torch.cuda.synchronize()
     assert bool((buf == 0).all())
     before = ssd.launches
@@ -528,6 +532,102 @@ def test_ssd_passes_refuse_shapes_outside_their_limits(card):
                      torch.zeros(1, 64, device=card),
                      torch.zeros(1, device=card), z, z, chunk=32)
     assert ssd.launches == before
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+@pytest.mark.parametrize("n", [16, 64, 128, 256])
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_ssd_final_state_matches_plain(card, n, chunk, chunks):
+    """``final_state``: pass 1 also computes the last chunk's state and the
+    state pass writes the state after it, within 3e-3 of ``ssd_plain``'s;
+    y is bit-identical to a scan without it (pass 3 reads the same
+    incoming states)."""
+    rng = np.random.default_rng(n + chunk + chunks)
+    softplus = torch.nn.functional.softplus
+    l = chunk * chunks
+    x = _randn(rng, (3, l, 64), card)
+    dt = softplus(_randn(rng, (3, l), card)) * 0.1
+    a = -softplus(_randn(rng, (3,), card))
+    b, c = _randn(rng, (3, l, n), card), _randn(rng, (3, l, n), card)
+    before = ssd.launches
+    y, h = ssd.ssd_scan(x, dt, a, b, c, chunk=chunk, final_state=True)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    assert h.shape == (3, n, 64) and h.dtype == torch.float32
+    y_ref, h_ref = ssd.ssd_plain(x, dt, a, b, c, chunk=chunk,
+                                 final_state=True)
+    torch.testing.assert_close(h, h_ref, rtol=3e-3, atol=3e-3)
+    torch.testing.assert_close(y, y_ref, rtol=3e-3, atol=3e-3)
+    assert torch.equal(y, ssd.ssd_scan(x, dt, a, b, c, chunk=chunk))
+
+
+@pytest.mark.parametrize("shape", ["tiny", "zamba2"])
+def test_model_call_sites_match_plain(card, shape):
+    """The model's two kernel call sites on the card against their plain
+    versions: ``blockwise_attention`` (bf16, padded to the tile) against
+    ``attention_reference`` on the card, RTOL bf16; ``_ssd_chunked`` (y
+    and the final state) against the same route on the CPU, which runs
+    ``ssd_plain``, 3e-3. zamba2-1.2b's shapes: 32 heads of 64 over 1000
+    tokens (padded to 1024), SSD 64 heads of 64, state 64, chunk 128."""
+    from repro_torch.models import attention, mamba2
+    rng = np.random.default_rng(11)
+    b, s, h, d, nh, p, n, chunk = ((2, 50, 4, 16, 4, 32, 16, 16)
+                                   if shape == "tiny" else
+                                   (1, 1000, 32, 64, 64, 64, 64, 128))
+    q, k, v = (_randn(rng, (b, s, h, d), card).to(torch.bfloat16)
+               for _ in range(3))
+    before = fa.launches
+    out = attention.blockwise_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    torch.testing.assert_close(out.float(), attention.attention_reference(
+        q, k, v).float(), rtol=RTOL[torch.bfloat16],
+        atol=RTOL[torch.bfloat16])
+    sp = s + (-s) % chunk
+    softplus = torch.nn.functional.softplus
+    x = _randn(rng, (b, sp, nh, p), card)
+    dt = softplus(_randn(rng, (b, sp, nh), card)) * 0.1
+    a = -softplus(_randn(rng, (nh,), card))
+    bm, cm = _randn(rng, (b, sp, n), card), _randn(rng, (b, sp, n), card)
+    before = ssd.launches
+    y, hf = mamba2._ssd_chunked(x, dt, a, bm, cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1
+    y_ref, h_ref = mamba2._ssd_chunked(*(t.cpu() for t in (x, dt, a, bm,
+                                                            cm)), chunk)
+    torch.testing.assert_close(y.cpu(), y_ref, rtol=3e-3, atol=3e-3)
+    torch.testing.assert_close(hf.cpu(), h_ref, rtol=3e-3, atol=3e-3)
+
+
+@pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b"])
+def test_tiny_model_on_card_matches_cpu(card, name):
+    """One tiny model's weights on both devices: prefill through the
+    kernels on the card (one flash-attention launch an attention site,
+    one SSD launch a Mamba layer) and a decode step, against the CPU's
+    plain versions, within 0.05 (tests/test_models.py:74's tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg = get_config(name).tiny()
+    model = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    on_card = tf.init_params(cfg, torch.Generator().manual_seed(1),
+                             device="cpu").to(card)
+    on_card.load_state_dict(model.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 40)))
+    sites = (cfg.n_layers if cfg.family == "dense"
+             else cfg.n_layers // cfg.shared_attn_every)
+    mamba_layers = 0 if cfg.family == "dense" else cfg.n_layers
+    before = (fa.launches, ssd.launches)
+    last, cache, n = tf.prefill(cfg, on_card, {"tokens": toks.to(card)}, 48)
+    torch.cuda.synchronize()
+    assert (fa.launches - before[0], ssd.launches - before[1]) == \
+        (sites, mamba_layers)
+    ref_last, ref_cache, _ = tf.prefill(cfg, model, {"tokens": toks}, 48)
+    assert (last.cpu() - ref_last).abs().max() < 0.05
+    step, _ = tf.decode_step(cfg, on_card, cache, toks[:, :1].to(card), n)
+    ref_step, _ = tf.decode_step(cfg, model, ref_cache, toks[:, :1], n)
+    assert (step.cpu() - ref_step).abs().max() < 0.05
 
 
 @pytest.mark.parametrize("group,tiling,causal,window", [

@@ -128,6 +128,19 @@ def test_registries_hold_this_slice_only():
     for name in ("flash_attention", "ssd"):
         assert get_kernel(name).tier == "framework"
     assert get_kernel("gemm").module is gm
+    # the LM serving slice: every config of the reference, the dense, ssm
+    # and hybrid families served, the others refused
+    from repro.configs import ARCHS as REF_ARCHS
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.transformer import FAMILIES, init_params
+    assert list(ARCHS) == list(REF_ARCHS)
+    assert FAMILIES == ("dense", "ssm", "hybrid")
+    assert {c.family for c in ARCHS.values()} - set(FAMILIES) == \
+        {"moe", "audio", "vlm"}
+    for cfg in ARCHS.values():
+        if cfg.family not in FAMILIES:
+            with pytest.raises(NotImplementedError):
+                init_params(cfg.tiny(), device="cpu")
 
 
 def test_t4_files_cross_packages_byte_for_byte(tmp_path):
@@ -276,6 +289,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((SRC / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for sub in ("configs", "models", "inference", "launch", "serving"):
+        assert SRC / "repro_torch" / sub / "__init__.py" in files, sub
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path} imports {bad}"
@@ -284,6 +299,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             ".__init__")
         for p in (SRC / "repro_torch").rglob("*.py")
         if p.name != "__main__.py")
+    for m in ("repro_torch.models.transformer", "repro_torch.models.weights",
+              "repro_torch.inference.engine", "repro_torch.launch.serve",
+              "repro_torch.serving.engine", "repro_torch.configs.base",
+              "repro_torch.deprecations"):
+        assert m in modules, m
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
