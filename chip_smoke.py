@@ -126,28 +126,56 @@ Phases (any failure ends the script with a non-zero exit):
      SSD launches and no other; (e) prefill ms and decode ms a token by
      CUDA events, tokens/s, peak memory, and the kernels' share of a
      prefill's device time by ``torch.profiler`` with its largest
-     kernels, each beside the card's name and power limit.
+     kernels, each beside the card's name and power limit;
+  8. the main path, part five: training zamba2-1.2b at full width
+     (``TRAIN_ARCH``), random float32 weights from a seeded generator,
+     ``TokenPipeline`` batches of 4 x 1024 tokens, remat full, AdamW
+     (peak lr 3e-4, warmup 2), 8 steps: (a) in step 0 the inputs of the
+     first flash-attention and the first SSD call captured; at those
+     shapes the kernel's lse against the plain logsumexp (float32 RTOL)
+     and the SSD's chunk states against ``ssd_plain``'s (3e-3), and each
+     call site's autograd Function (kernel forward, PyTorch backward)
+     against autograd through ``attention_plain`` / ``ssd_plain`` on the
+     card (output and every input gradient by relative error, bf16 RTOL
+     and 3e-3), each forward, backward and the plain forward + backward
+     timed; (b) every launch counter set to 0 around step 1: exactly 6
+     flash-attention launches (the shared block is not rematerialised)
+     and 76 SSD launches (38 forward, 38 in the recompute), no other; (c)
+     the loss finite at every step and lower at the last than at the
+     first; (d) a checkpoint of step 4 through ``AsyncCheckpointer``,
+     written while steps 4-6 run, restored into a fresh state and
+     compared with the state kept on the card, every tensor bit for bit;
+     (e) step ms by CUDA events (median of steps 1-3, before the
+     checkpoint; steps 4-6, beside its write, apart), tokens/s, peak
+     memory, and by ``torch.profiler`` on step 7 the kernels' share of
+     the device time, the shares of the two backward Functions'
+     autograd nodes and the largest kernels, each beside the card's
+     name and power limit.
 
 Before phase 5 every recording is checked to let a tuning run end
-(``ends_check``); phases 5, 6 and 7 each fail past a wall-clock limit.
+(``ends_check``); phases 5, 6, 7 and 8 each fail past a wall-clock
+limit.
 The budget-scan launches of phases 5-6 are printed by strategy and
 campaign.
 
 Kernel launch counters are set to 0 just before phase 4 and read just
-after phase 6, and again just before phase 7's (d) and read just after
-it; each kernel must have launched in phases 4-6, and flash attention
-and the SSD exactly once an attention site and a Mamba layer in (d).
-The line before the last is the JSON summary of every kernel, its
-launches those of both main paths; the last line is the device record
-``{"ok": true, "device": {...}}``.
+after phase 6, again just before phase 7's (d) and read just after it,
+and again around phase 8's step 1; each kernel must have launched in
+phases 4-6, flash attention and the SSD exactly once an attention site
+and a Mamba layer in phase 7's (d), and 6 and 76 times in phase 8's
+step. The line before the last is the JSON summary of every kernel, its
+launches those of the three main paths; the last line is the device
+record ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import pathlib
 import random
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -254,7 +282,12 @@ META_EVALS = 50              # phase 6's meta campaign: GA configs scored
 SERVE_ARCH = "zamba2-1.2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_LEN = 4, 1024, 32, 2048
 SERVE_LIMIT_S = 180          # phase 7 fails past this wall-clock limit
-PROFILE_TOP = 12             # kernels listed by device time of a prefill
+PROFILE_TOP = 12             # kernels listed by device time (prefill, step)
+# phase 8: training zamba2-1.2b at full width (6 shared-attention calls
+# and 38 Mamba2 layers a forward; remat full recomputes the Mamba layers)
+TRAIN_ARCH = "zamba2-1.2b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE_AT = 4, 1024, 8, 4
+TRAIN_LIMIT_S = 240          # phase 8 fails past this wall-clock limit
 
 
 def fail(msg: str) -> None:
@@ -1998,6 +2031,314 @@ def serve(device: str, card: str, limit_s: int) -> dict:
         signal.alarm(0)
 
 
+# ----------------------------------------------------------------- phase 8
+def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Relative Frobenius error of ``out`` against ``ref``, in float64."""
+    out, ref = out.double(), ref.double()
+    return ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+
+
+def grads_agree(what: str, names, ours, refs, tol: float) -> float:
+    """Each of ``ours`` (an output, then gradients) within ``tol`` of
+    ``refs`` by relative Frobenius error; returns the largest max |err|."""
+    worst = 0.0
+    for name, out, ref in zip(names, ours, refs):
+        err = rel_err(out, ref)
+        ok = bool(torch.isfinite(out).all()) and err <= tol  # NaN fails
+        print(f"  {what}: {name} relative error {err:.3g} (limit {tol:g}), "
+              f"max |err| {(out.float() - ref.float()).abs().max().item():.4g}"
+              f" {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{what}: {name} disagrees with autograd through the plain "
+                 f"version")
+        worst = max(worst, (out.float() - ref.float()).abs().max().item())
+    return worst
+
+
+def check_train_attention(args: tuple, kwargs: dict) -> dict:
+    """The first flash-attention call of a zamba2-1.2b train step, as
+    captured: the kernel's lse against the plain logsumexp (float32
+    RTOL); the ``_Flash`` Function (kernel forward, PyTorch backward)
+    against autograd through ``attention_plain`` on the card, output and
+    dq, dk, dv within the bf16 RTOL by relative error; the forward (with
+    the lse), the backward and the plain forward + backward timed."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    q, k, v = args
+    bh, s, d = q.shape
+    causal, window = kwargs["causal"], kwargs["window"]
+    tile = kwargs["block_q"]
+    out, lse = fa.flash_attention(q, k, v, **kwargs)
+    _, lse_ref = fa.attention_plain(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    agree(f"train attention {bh}x{s}x{d} {q.dtype}: lse", lse, lse_ref,
+          RTOL[torch.float32])
+    gen = torch.Generator(device=q.device).manual_seed(8)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    ours = attention._Flash.apply(*leaves, tile, causal, window)
+    ours = (ours, *torch.autograd.grad(ours, leaves, dout))
+    ref = fa.attention_plain(*leaves, causal=causal, window=window)
+    ref = (ref, *torch.autograd.grad(ref, leaves, dout))
+    err = grads_agree(f"train attention {bh}x{s}x{d}",
+                      ("out", "dq", "dk", "dv"), ours, ref,
+                      RTOL[torch.bfloat16])
+    fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kwargs))
+    bwd_ms = time_ms(lambda: attention._flash_bwd(
+        q, k, v, out, lse, dout, causal=causal, window=window))
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        fa.attention_plain(*leaves, causal=causal, window=window), leaves,
+        dout))
+    print(f"  train attention {bh}x{s}x{d}: kernel forward with lse "
+          f"{fwd_ms:.4f} ms, PyTorch backward {bwd_ms:.4f} ms, plain "
+          f"forward + backward {plain_ms:.4f} ms")
+    return {"err": err, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "plain_ms": plain_ms}
+
+
+def check_train_ssd(args: tuple, kwargs: dict) -> dict:
+    """The first SSD call of a zamba2-1.2b train step, as captured: the
+    chunks' incoming states against ``ssd_plain``'s (3e-3); the
+    ``_SSDScan`` Function (kernel forward, PyTorch backward) against
+    autograd through ``ssd_plain`` on the card, y and dx, ddt, da, dB, dC
+    within 3e-3 by relative error; the forward (with the states), the
+    backward and the plain forward + backward timed."""
+    from repro_torch.kernels import ssd
+    from repro_torch.models import mamba2
+    x, dt, a, b, c = args
+    bh, l, pp = x.shape
+    chunk = kwargs["chunk"]
+    y, states = ssd.ssd_scan(*args, chunk=chunk, chunk_states=True)
+    _, states_ref = ssd.ssd_plain(*args, chunk=chunk, chunk_states=True)
+    agree(f"train ssd {bh}x{l} P {pp} chunk {chunk}: chunk states", states,
+          states_ref, SSD_TOL)
+    gen = torch.Generator(device=x.device).manual_seed(9)
+    dy = torch.randn(x.shape, generator=gen, device=x.device)
+    leaves = [t.detach().requires_grad_() for t in args]
+    ours = mamba2._SSDScan.apply(*leaves, chunk, False)
+    ours = (ours, *torch.autograd.grad(ours, leaves, dy))
+    ref = ssd.ssd_plain(*leaves, chunk=chunk)
+    ref = (ref, *torch.autograd.grad(ref, leaves, dy))
+    err = grads_agree(f"train ssd {bh}x{l}", ("y", "dx", "ddt", "da", "dB",
+                                               "dC"), ours, ref, SSD_TOL)
+    fwd_ms = time_ms(lambda: ssd.ssd_scan(*args, chunk=chunk,
+                                          chunk_states=True))
+    bwd_ms = time_ms(lambda: mamba2._ssd_bwd(*args, states, dy, None,
+                                             chunk))
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        ssd.ssd_plain(*leaves, chunk=chunk), leaves, dy))
+    print(f"  train ssd {bh}x{l} P {pp} chunk {chunk}: kernels forward with "
+          f"the states {fwd_ms:.4f} ms, PyTorch backward {bwd_ms:.4f} ms, "
+          f"plain forward + backward {plain_ms:.4f} ms")
+    return {"err": err, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "plain_ms": plain_ms}
+
+
+def train_profile(fn) -> dict:
+    """Device time in ms of one ``fn()`` (a train step) from
+    ``torch.profiler``: all kernels and their launches, the
+    flash-attention kernel, the SSD's three, the kernels launched under
+    the two backward Functions' autograd nodes, and the ``PROFILE_TOP``
+    kernels that take most (name, ms, launches); None where the trace
+    holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kern = [e for e in events
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kern:
+        return None
+
+    def ms(*names):
+        return sum(e.device_time_total for e in kern
+                   if not names or any(n in e.key for n in names)) / 1e3
+
+    def node_ms(name):
+        return sum(e.device_time_total for e in events
+                   if getattr(e, "device_type", None) == DeviceType.CPU
+                   and e.key.startswith("autograd::engine::evaluate_function")
+                   and e.key.endswith(name)) / 1e3
+
+    top = sorted(kern, key=lambda e: -e.device_time_total)[:PROFILE_TOP]
+    return {"all": ms(), "launches": sum(e.count for e in kern),
+            "attention": ms("attn_kernel"),
+            "ssd": ms("ssd_chunk_states", "ssd_state_pass",
+                      "ssd_chunk_outputs"),
+            "attention_bwd": node_ms("_FlashBackward"),
+            "ssd_bwd": node_ms("_SSDScanBackward"),
+            "top": [(e.key, e.device_time_total / 1e3, e.count)
+                    for e in top]}
+
+
+def state_tensors(state: dict) -> dict:
+    """Every tensor of a train state by name."""
+    opt = state["opt"]
+    out = {f"params/{n}": p for n, p in state["params"].named_parameters()}
+    for part in ("mu", "nu"):
+        out.update({f"opt/{part}/{n}": t for n, t in opt[part].items()})
+    out["opt/step"] = opt["step"]
+    return out
+
+
+def train(device: str, card: str, limit_s: int) -> dict:
+    """Phase 8: train zamba2-1.2b at full width (random weights from a
+    seeded generator) for ``TRAIN_STEPS`` steps. Returns the phase's
+    kernel launches (flash attention and SSD) on its main path, (b). Fails
+    past ``limit_s`` seconds of wall clock."""
+    from repro_torch.checkpoint.manager import (AsyncCheckpointer,
+                                                CheckpointManager)
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+    time_limit(8, limit_s)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        cfg = get_config(TRAIN_ARCH)
+        sites = cfg.n_layers // cfg.shared_attn_every
+        opt = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                              total_steps=TRAIN_STEPS)
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(
+            cfg, opt, torch.Generator(device=device).manual_seed(0),
+            device=device)
+        step_fn = make_train_step(cfg, opt, TrainConfig(remat="full"))
+        pipe = TokenPipeline(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH),
+                             cfg)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        print(f"  {cfg.name} at full width: {n_params:,} float32 "
+              f"parameters, AdamW state {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+              f"a step, remat full, built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        losses, step_ms, launches = [], [], None
+
+        def one_step(i):
+            nonlocal state
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, pipe.batch_at(i))
+            end.record()
+            end.synchronize()
+            losses.append(m["loss"].item())
+            step_ms.append(start.elapsed_time(end))
+
+        # (a) step 0 (the warm-up) with the first call of each kernel
+        # captured; the call sites held against the plain versions
+        with Capture(fa, "flash_attention") as attn, \
+                Capture(ssd, "ssd_scan") as scan:
+            one_step(0)
+        site_attn = check_train_attention(attn.args, attn.kwargs)
+        site_ssd = check_train_ssd(scan.args, scan.kwargs)
+        # (b) every launch counter around one step, the main path's
+        for mod in ALL_KERNELS.values():
+            mod.launches = 0
+        rp.launches = 0
+        one_step(1)
+        launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
+        launches["budget_scan"] = rp.launches
+        print(f"  (b) step 1: launches {launches}")
+        want = {**{k: 0 for k in launches}, "flash_attention": sites,
+                "ssd": 2 * cfg.n_layers}
+        if launches != want:
+            fail(f"train: one step made {launches} kernel launches, not "
+                 f"{want}")
+        # (d) a checkpoint after step TRAIN_SAVE_AT, written while the
+        # next steps run; the state kept on the card to compare
+        for i in range(2, TRAIN_SAVE_AT):
+            one_step(i)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ac = AsyncCheckpointer(CheckpointManager(ckpt_dir, keep=1))
+        t0 = time.perf_counter()
+        ac.save(TRAIN_SAVE_AT, state)
+        snap_s = time.perf_counter() - t0
+        kept = {n: t.detach().clone() for n, t in state_tensors(
+            state).items()}
+        for i in range(TRAIN_SAVE_AT, TRAIN_STEPS - 1):
+            one_step(i)
+        t0 = time.perf_counter()
+        ac.wait()
+        wait_s = time.perf_counter() - t0
+        # (e) the last step under the profiler
+        prof = train_profile(lambda: one_step(TRAIN_STEPS - 1))
+        t0 = time.perf_counter()
+        restored = ac.manager.restore(TRAIN_SAVE_AT, init_train_state(
+            cfg, opt, torch.Generator(device=device).manual_seed(1),
+            device=device))
+        restore_s = time.perf_counter() - t0
+        got = state_tensors(restored)
+        differ = [n for n, t in kept.items() if not torch.equal(got[n], t)]
+        size = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                   for f in os.listdir(ckpt_dir)) / 1e9
+        print(f"  (d) checkpoint of step {TRAIN_SAVE_AT} through "
+              f"AsyncCheckpointer: {size:.3f} GB, snapshot on the caller "
+              f"thread {snap_s:.2f} s, write waited for {wait_s:.2f} s after "
+              f"{TRAIN_STEPS - 1 - TRAIN_SAVE_AT} more steps, restore "
+              f"{restore_s:.2f} s; {len(kept) - len(differ)} of {len(kept)} "
+              f"tensors bit-identical")
+        if differ:
+            fail(f"train: the restored checkpoint differs in {differ[:4]}")
+        del kept, restored, got
+        # (c) the loss
+        print(f"  (c) loss by step: {[round(x, 4) for x in losses]}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"train: the loss is not finite or did not fall: {losses}")
+        # (e) measurements
+        # after the warm-up and before the checkpoint; then beside its write
+        clean = step_ms[1:TRAIN_SAVE_AT]
+        beside = step_ms[TRAIN_SAVE_AT:TRAIN_STEPS - 1]
+        med = statistics.median(clean)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        print(f"  (e) [{card}] step {med:.1f} ms (CUDA events, median of "
+              f"steps 1-{TRAIN_SAVE_AT - 1}, {min(clean):.1f}-"
+              f"{max(clean):.1f}), {tokens / med * 1e3:.0f} tokens/s; steps "
+              f"{TRAIN_SAVE_AT}-{TRAIN_STEPS - 2} beside the checkpoint's "
+              f"write: median {statistics.median(beside):.1f} ms; warm-up "
+              f"step {step_ms[0]:.1f} ms; peak memory {peak:.3f} GB over "
+              f"steps 0-{TRAIN_SAVE_AT - 1}; each step (the last profiled): "
+              f"{[round(x, 1) for x in step_ms]} ms")
+        if prof is None:
+            print(f"  (e) [{card}] shares of a step: not measured (the "
+                  f"profiler traced no kernel)")
+        else:
+            whole, dev = step_ms[-1], prof["all"]
+            print(f"  (e) [{card}] profiled step {whole:.1f} ms; device time "
+                  f"by torch.profiler: all kernels {dev:.1f} ms "
+                  f"({dev / whole:.3f} of the step, so "
+                  f"{1 - dev / whole:.3f} idle) in {prof['launches']} "
+                  f"launches; shares of the device time: flash attention "
+                  f"{prof['attention']:.2f} ms ({prof['attention'] / dev:.4f}"
+                  f"), SSD {prof['ssd']:.2f} ms ({prof['ssd'] / dev:.4f}), "
+                  f"attention backward {prof['attention_bwd']:.2f} ms "
+                  f"({prof['attention_bwd'] / dev:.4f}), SSD backward "
+                  f"{prof['ssd_bwd']:.2f} ms ({prof['ssd_bwd'] / dev:.4f})")
+            for key, ms, count in prof["top"]:
+                print(f"    {ms:9.3f} ms {count:5d}x {key[:90]}")
+        print(f"  (a) [{card}] call sites a step: attention forward "
+              f"{sites} x {site_attn['fwd_ms']:.3f} ms, backward {sites} x "
+              f"{site_attn['bwd_ms']:.3f} ms; SSD forward 2 x "
+              f"{cfg.n_layers} x {site_ssd['fwd_ms']:.3f} ms, backward "
+              f"{cfg.n_layers} x {site_ssd['bwd_ms']:.3f} ms")
+        return {"flash_attention": launches["flash_attention"],
+                "ssd": launches["ssd"]}
+    finally:
+        signal.alarm(0)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 # ----------------------------------------------------------------- driver
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2105,7 +2446,14 @@ def main() -> int:
     print(f"  [phase 7: {time.perf_counter() - t0:.1f} s]")
     for name, n in served.items():
         launches[name] += n
-    print(f"  launches on the main paths (phases 4-6 and 7): {launches}")
+    print(f"[8] main path: training {TRAIN_ARCH} at full width, "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    t0 = time.perf_counter()
+    trained = train(device, smi.stdout.strip(), TRAIN_LIMIT_S)
+    print(f"  [phase 8: {time.perf_counter() - t0:.1f} s]")
+    for name, n in trained.items():
+        launches[name] += n
+    print(f"  launches on the main paths (phases 4-6, 7 and 8): {launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"  total {time.perf_counter() - t_start:.1f} s")

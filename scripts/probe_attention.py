@@ -104,14 +104,14 @@ def launcher(lib: ctypes.CDLL, q, k, v, out, threads: int, sub_kv: int):
     block shape on the problem's tensors."""
     lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream().cuda_stream
 
     def fn(block_q: int, block_kv: int) -> None:
         rc = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, S,
-            D, BH // BH_KV, block_q, block_kv, 1, -1, 1.0 / D ** 0.5, 0, D,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            BH, S, D, BH // BH_KV, block_q, block_kv, 1, -1, 1.0 / D ** 0.5, 0, D,
             threads, sub_kv, stream)
         if rc:
             raise RuntimeError(f"launch refused: cudaError {rc}")

@@ -26,6 +26,11 @@
 // the first real score wipes that with alpha = exp(-1e30 - m) = 0, as on the
 // TPU. For bf16 inputs p is rounded to bf16 before the p v product (the
 // reference's `p.astype(v.dtype)`); l sums the unrounded p.
+// On request (a non-null lse pointer) the kernel also writes each q
+// row's logsumexp m + log(max(l, 1e-30)), float32: the statistic the
+// reference's custom VJP saves for its backward (models/attention.py:91),
+// which recomputes p = exp(s - lse) block by block. A call without one
+// (serving) writes nothing more.
 //
 // What bounds it on the H100: at starcoder2-7b's width (36 q heads over 4
 // kv heads, 4096 tokens, d = 128, causal, float32) the useful work is
@@ -195,9 +200,10 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0,
 template <int kBf16, int D, int NT, int SKV>
 __global__ void __launch_bounds__(NT, 256 / NT)
 attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
-            const void* __restrict__ v_in, void* __restrict__ out_in, int bh,
-            int s, int d, int group, int block_q, int block_kv, int causal,
-            int window, float scale, int vec) {
+            const void* __restrict__ v_in, void* __restrict__ out_in,
+            float* __restrict__ lse, int bh, int s, int d, int group,
+            int block_q, int block_kv, int causal, int window, float scale,
+            int vec) {
   using T = std::conditional_t<kBf16 != 0, __nv_bfloat16, float>;
   constexpr int P = D + 4;            // staged row pitch, in floats
   constexpr int NG = NT / kLanes;     // row groups
@@ -447,13 +453,24 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
         }
       }
     }
+    // with an lse output, lane 0 of each group writes its rows'
+    // m + log(max(l, 1e-30)) (one of the blocks sharing a q tile)
+    if (lse != nullptr && col0 == 0 && t == 0) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int row = r * NG + grp;
+        if (qs0 + row < block_q)
+          lse[static_cast<size_t>(h) * s + q0 + row] =
+              m[r] + logf(fmaxf(l[r], 1e-30f));
+      }
+    }
   }
 }
 
 template <int kBf16, int D, int NT, int SKV>
-int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int s, int d, int group, int block_q, int block_kv, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int bh, int s, int d, int group, int block_q, int block_kv,
+           int causal, int window, float scale, cudaStream_t stream) {
   constexpr int kSmem = smem_floats(D, NT, SKV) * 4;
   static_assert(kSmem <= kMaxSmem, "an instantiation fits a block");
   static bool configured = false;
@@ -476,8 +493,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
   const unsigned grid =
       static_cast<unsigned>(bh) * (s / block_q) * col_blocks(D);
   attn_kernel<kBf16, D, NT, SKV><<<grid, NT, kSmem, stream>>>(
-      q, k, v, out, bh, s, d, group, block_q, block_kv, causal, window, scale,
-      vec);
+      q, k, v, out, lse, bh, s, d, group, block_q, block_kv, causal, window,
+      scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -493,26 +510,31 @@ extern "C" {
 // no window. Returns cudaErrorInvalidValue, launching nothing, for a
 // problem outside this kernel's limits or a plan it was not built for,
 // else cudaGetLastError() after the launch (0 when it was accepted); does
-// not synchronise. Dtypes and contiguity are checked by the wrapper.
+// not synchronise. Dtypes and contiguity are checked by the wrapper. With
+// a non-null `lse`, a (bh, s) float32 output, each query row's logsumexp
+// of its masked, scaled scores goes there too, m + log(max(l, 1e-30)) as
+// the reference's custom VJP saves it (src/repro/models/attention.py:91);
+// a null `lse` writes nothing more.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, int bh, int s, int d, int group,
-                          int block_q, int block_kv, int causal, int window,
-                          float scale, int bf16, int d_max, int threads,
-                          int sub_kv, void* stream) {
+                          void* out, void* lse, int bh, int s, int d,
+                          int group, int block_q, int block_kv, int causal,
+                          int window, float scale, int bf16, int d_max,
+                          int threads, int sub_kv, void* stream) {
   if (bh < 1 || s < 1 || d < 1 || d > d_max || group < 1 || bh % group ||
       block_q < 1 || block_kv < 1 || s % block_q || s % block_kv ||
       static_cast<long long>(bh) * (s / block_q) * 2 > INT_MAX ||
       (bf16 != 0 && bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_out = static_cast<float*>(lse);
 #define REPRO_ATTN_CASE(D, NT, SKV)                                          \
   if (d_max == D && threads == NT && sub_kv == SKV)                          \
-    return bf16 ? launch<1, D, NT, SKV>(q, k, v, out, bh, s, d, group,       \
-                                        block_q, block_kv, causal, window,   \
-                                        scale, st)                           \
-                : launch<0, D, NT, SKV>(q, k, v, out, bh, s, d, group,       \
-                                        block_q, block_kv, causal, window,   \
-                                        scale, st);
+    return bf16 ? launch<1, D, NT, SKV>(q, k, v, out, lse_out, bh, s, d,     \
+                                        group, block_q, block_kv, causal,    \
+                                        window, scale, st)                   \
+                : launch<0, D, NT, SKV>(q, k, v, out, lse_out, bh, s, d,     \
+                                        group, block_q, block_kv, causal,    \
+                                        window, scale, st);
   REPRO_ATTN_CASE(256, 128, 32)
   REPRO_ATTN_CASE(128, 256, 64) REPRO_ATTN_CASE(128, 128, 32)
   REPRO_ATTN_CASE(64, 256, 64) REPRO_ATTN_CASE(64, 128, 32)

@@ -20,6 +20,12 @@ order). ``acc_dtype`` stays cost-model-only, as in the reference's
 ``make_live``. A problem the kernel cannot run (``fits`` is false: a head
 dimension above 256) raises ``ConfigRejected`` before any launch, on the
 CPU as on the card.
+
+``flash_attention(..., return_lse=True)`` also returns each q row's
+logsumexp, which the kernel writes beside the output (a null pointer
+otherwise, so a call that does not ask pays nothing): the statistic the
+model's attention backward (``models/attention.py``) recomputes the
+probabilities from, as the reference's custom VJP does.
 """
 from __future__ import annotations
 
@@ -164,18 +170,20 @@ def _lib() -> ctypes.CDLL:
                                f"disagree with the wrapper's {want}")
         lib.repro_flash_attention.restype = ctypes.c_int
         lib.repro_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    return_lse: bool = False):
     """The same function in plain PyTorch (the reference's
     ``attention_ref``): float32 logits over the whole S x S square per
     head, masked with the finite ``NEG_INF``, a softmax, then the product
-    with v; the result in q's dtype."""
+    with v; the result in q's dtype. With ``return_lse`` it returns
+    ``(out, lse)``, lse the (BH, S) float32 logsumexp of the masked
+    logits."""
     bh, s, d = q.shape
     group = bh // k.shape[0]
     kf = torch.repeat_interleave(k, group, dim=0).float()
@@ -190,17 +198,20 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= (q_pos - kv_pos) < window
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("hqk,hkd->hqd", p, vf).to(q.dtype)
+    out = torch.einsum("hqk,hkd->hqd", p, vf).to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 128, block_kv: int = 128,
-                    causal: bool = True,
-                    window: int | None = None) -> torch.Tensor:
+                    causal: bool = True, window: int | None = None,
+                    return_lse: bool = False):
     """q: (BH, S, D); k/v: (BH_kv, S, D) with BH % BH_kv == 0 (GQA: q head
     h reads kv head h // (BH / BH_kv)), float32 or bf16, the reference's
     layout. The CUDA kernel for tensors on the card, launched as ``plan``
-    says, and ``attention_plain`` for tensors on the CPU. Raises
+    says, and ``attention_plain`` for tensors on the CPU. With
+    ``return_lse`` it returns ``(out, lse)``, lse the (BH, S) float32
+    logsumexp of each q row's masked, scaled scores. Raises
     ``ConfigRejected`` for a problem ``plan`` refuses, on either device; a
     plan the C side refuses raises ``RuntimeError`` without a launch."""
     global launches
@@ -230,7 +241,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.device == k.device == v.device:
         raise ValueError("flash_attention operands lie on different devices")
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, window=window)
+        return attention_plain(q, k, v, causal=causal, window=window,
+                               return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
@@ -238,14 +250,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention takes contiguous tensors")
     lib = _lib()
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     rc = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, d,
-        bh // bh_kv, block_q, block_kv, int(causal),
-        -1 if window is None else window, 1.0 / (d ** 0.5), int(pl.bf16),
-        pl.d_max, pl.threads, pl.sub_kv, cuda.stream_handle(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), bh, s, d, bh // bh_kv,
+        block_q, block_kv, int(causal), -1 if window is None else window,
+        1.0 / (d ** 0.5), int(pl.bf16), pl.d_max, pl.threads, pl.sub_kv,
+        cuda.stream_handle(q.device))
     cuda.check_launch(lib, rc, "flash_attention")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 # ----------------------------------------------------------- live recording

@@ -87,15 +87,18 @@ def _lib() -> ctypes.CDLL:
 
 def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
               b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
-              final_state: bool = False):
+              final_state: bool = False, chunk_states: bool = False):
     """The same function in plain PyTorch, as the kernels' three passes
     over all BH rows and chunks at once: each chunk's cum and state
     ``S_c = (B o exp(total_c - cum) dt)^T X``; the one loop, over chunks,
     ``h_{c+1} = exp(total_c) h_c + S_c`` from zero; then every chunk's
     intra-chunk term ``((C B^T) o exp(cum_i - cum_j)[j <= i] o dt_j) X``
-    (``torch.where`` keeps the overflowing upper triangle out) and
+    (``torch.where`` keeps the overflowing upper triangle out of the
+    values and of autograd's gradients) and
     inter-chunk term ``exp(cum) C h_c``. With ``final_state`` it returns
-    ``(y, h)``, h the (BH, N, P) float32 state after the last chunk."""
+    ``(y, h)``, h the (BH, N, P) float32 state after the last chunk; with
+    ``chunk_states`` also (last) the (BH, L / chunk, N, P) float32 states
+    h_c that enter each chunk."""
     bh, l, p = x.shape
     n = b.shape[-1]
     nc = l // chunk
@@ -114,23 +117,39 @@ def ssd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     idx = torch.arange(chunk, device=x.device)
     mask = idx[:, None] >= idx[None, :]
     li = cum[..., :, None] - cum[..., None, :]                  # (BH,C,Q,Q)
+    # the exponent is zeroed above the diagonal before the exp, so that
+    # autograd through this version meets no inf x 0 (the values are the
+    # same)
     weights = (cc @ bc.transpose(-1, -2)) * torch.where(
-        mask, torch.exp(li), 0.0) * dtc[..., None, :]
-    y = weights @ xc + torch.exp(cum)[..., None] * (cc @ torch.stack(h_in, 1))
+        mask, torch.exp(torch.where(mask, li, 0.0)), 0.0) * dtc[..., None, :]
+    h_in = torch.stack(h_in, 1)
+    y = weights @ xc + torch.exp(cum)[..., None] * (cc @ h_in)
     y = y.reshape(bh, l, p).to(x.dtype)
-    return (y, h) if final_state else y
+    return _outputs(y, h if final_state else None,
+                    h_in if chunk_states else None)
+
+
+def _outputs(y, h, states):
+    """``y``, or a tuple of y and the outputs asked for."""
+    extra = tuple(t for t in (h, states) if t is not None)
+    return (y, *extra) if extra else y
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
-             final_state: bool = False, marks: Sequence | None = None):
+             final_state: bool = False, chunk_states: bool = False,
+             marks: Sequence | None = None):
     """SSD scan for a flattened (batch·heads) leading dim, float32, the
     reference's layout: x (BH, L, P); dt (BH, L); a (BH,); b/c (BH, L, N).
     Returns y like x, or ``(y, h)`` with ``final_state``, h the (BH, N, P)
     float32 state after the last step (pass 1 then also computes the last
-    chunk's state, and the state pass writes h): the three CUDA kernels
-    for tensors on the card (a (BH, L) cum and a (BH, L / chunk, N, P)
-    state scratch allocated here), ``ssd_plain`` for tensors on the CPU.
+    chunk's state, and the state pass writes h); with ``chunk_states``
+    also (last) the (BH, L / chunk, N, P) float32 states h_c that enter
+    each chunk, the backward's input: the state scratch, which the state
+    pass leaves holding them, returned instead of freed (no launch more,
+    y unchanged). The three CUDA kernels for tensors on the card (a (BH,
+    L) cum and a (BH, L / chunk, N, P) state scratch allocated here),
+    ``ssd_plain`` for tensors on the CPU.
     Raises ``ConfigRejected`` for a problem ``fits`` refuses, on either
     device. ``marks``, four CUDA events, are recorded before the first
     kernel and after each (so a caller can time the passes)."""
@@ -155,7 +174,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if len({t.device for t in (x, dt, a, b, c)}) != 1:
         raise ValueError("ssd_scan operands lie on different devices")
     if x.device.type == "cpu":
-        return ssd_plain(x, dt, a, b, c, chunk=chunk, final_state=final_state)
+        return ssd_plain(x, dt, a, b, c, chunk=chunk, final_state=final_state,
+                         chunk_states=chunk_states)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on CUDA or the CPU, not {x.device}")
     if not all(t.is_contiguous() for t in (x, dt, a, b, c)):
@@ -181,7 +201,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         if marks:
             marks[i + 1].record()
     launches += 1
-    return (y, h) if final_state else y
+    return _outputs(y, h, states if chunk_states else None)
 
 
 # ----------------------------------------------------------- live recording

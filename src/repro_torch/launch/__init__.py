@@ -1,1 +1,1 @@
-"""Launchers of the port (``src/repro/launch/``): ``serve``."""
+"""Launchers of the port (``src/repro/launch/``): ``serve``, ``train``."""

@@ -24,9 +24,10 @@ COMPUTE_DTYPE = torch.bfloat16
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A serving weight: no gradient (the kernels have no backward yet;
-    training is the next slice of the port)."""
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable float32 weight. Code that only evaluates runs under
+    ``torch.no_grad()`` or ``torch.inference_mode()`` (the serving engine
+    does), so that it builds no autograd graph."""
+    return nn.Parameter(t)
 
 
 # ------------------------------------------------------------------- norms

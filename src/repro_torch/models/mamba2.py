@@ -1,4 +1,5 @@
-"""Mamba2 (SSD) block: chunked prefill through the SSD kernel, O(1) decode.
+"""Mamba2 (SSD) block: chunked SSD kernel forward with the reference's
+chunked backward, O(1) decode.
 
 Port of ``src/repro/models/mamba2.py``. ``make_mamba`` / ``apply_mamba`` /
 ``decode_mamba`` become the ``Mamba`` module (the reference's parameter
@@ -16,6 +17,18 @@ on the CPU the wrapper runs its plain version. ``_causal_conv`` and the
 decode step are plain PyTorch, as the reference computes them outside
 any kernel. The reference's ``h0`` (never passed by the model) is left
 out: the kernels start from a zero state.
+
+Training: the reference differentiates its ``lax.scan`` under
+``jax.checkpoint`` (``:107-113``); it has no Pallas backward. Here the
+scan is the ``torch.autograd.Function`` ``_SSDScan``: its forward is the
+kernel call, which also hands back each chunk's incoming state h_c (the
+state scratch, no launch more); its backward, ``_ssd_bwd``, is the
+gradient of the same chunked algorithm in PyTorch, chunk-parallel given
+the saved h_c, with one reverse pass over the chunks for the state's
+gradient. The per-head expansion of B and C, ``a``'s repeat over the
+batch and the padding stay outside, so autograd sums their gradients. A
+call whose inputs need no gradient (serving) goes straight to the
+kernel.
 """
 from __future__ import annotations
 
@@ -56,11 +69,101 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return F.silu(out + b.to(x.dtype))
 
 
-def _ssd_chunked(x, dt, a, bmat, cmat, chunk: int) -> tuple:
-    """Chunked SSD scan, one ``ssd_scan`` call.
+def _ssd_bwd(x, dt, a, b, c, h_in, dy, dh, chunk: int) -> tuple:
+    """Gradient of the chunked scan on the kernels' layout: x (BH, L, P),
+    dt (BH, L), a (BH,), b/c (BH, L, N), h_in (BH, L / chunk, N, P) the
+    states entering each chunk, dy like x, dh the final state's gradient
+    (or None). Per chunk, with cum the in-chunk prefix sum of dt a, total
+    its last entry, L = exp(cum_i - cum_j)[j <= i], W = (C B^T) o L o dt_j:
+    y = W X + exp(cum) C h_c and h_{c+1} = exp(total) h_c + S_c, S_c =
+    sum_j exp(total - cum_j) dt_j B_j (x) X_j. The state's gradient G_c
+    comes from one reverse pass, G_c = direct_c + exp(total_c) G_{c+1}
+    with direct_c = C^T (exp(cum) o dY); the rest is chunk-parallel.
+    Returns (dx, ddt, da, db, dc), float32."""
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    nc = l // chunk
+    xc, dyc = x.reshape(bh, nc, chunk, p), dy.float().reshape(bh, nc, chunk, p)
+    bc, cc = b.reshape(bh, nc, chunk, n), c.reshape(bh, nc, chunk, n)
+    dtc = dt.reshape(bh, nc, chunk)
+    cum = torch.cumsum(dtc * a[:, None, None], dim=2)          # (BH, C, Q)
+    total = cum[..., -1]                                        # (BH, C)
+    idx = torch.arange(chunk, device=x.device)
+    mask = idx[:, None] >= idx[None, :]
+    ldecay = torch.where(mask, torch.exp(torch.where(
+        mask, cum[..., :, None] - cum[..., None, :], 0.0)), 0.0)
+    cb = cc @ bc.transpose(-1, -2)                              # (BH,C,Q,Q)
+    w = cb * ldecay * dtc[..., None, :]
+    # intra-chunk term y = W X
+    dw = dyc @ xc.transpose(-1, -2)
+    dx = w.transpose(-1, -2) @ dyc
+    dm = dw * ldecay * dtc[..., None, :]
+    dc = dm @ bc
+    db = dm.transpose(-1, -2) @ cc
+    ddt = (dw * cb * ldecay).sum(-2)
+    e = dw * w
+    dcum = e.sum(-1) - e.sum(-2)
+    # inter-chunk term exp(cum) C h_c
+    ecum = torch.exp(cum)
+    dc = dc + ecum[..., None] * (dyc @ h_in.transpose(-1, -2))
+    dcum = dcum + ecum * (dyc * (cc @ h_in)).sum(-1)
+    direct = cc.transpose(-1, -2) @ (ecum[..., None] * dyc)     # (BH,C,N,P)
+    # the state's gradient, one reverse pass: g[:, c] is dL/dh_{c+1}
+    decay = torch.exp(total)
+    g_next = (torch.zeros((bh, n, p), dtype=torch.float32, device=x.device)
+              if dh is None else dh.float())
+    g = [None] * nc
+    for ci in reversed(range(nc)):
+        g[ci] = g_next
+        g_next = direct[:, ci] + decay[:, ci, None, None] * g_next
+    g = torch.stack(g, 1)
+    # the chunk's state S_c and the decay of h_c
+    suffix = torch.exp(total[..., None] - cum)
+    sw = suffix * dtc
+    gx = xc @ g.transpose(-1, -2)                               # (BH,C,Q,N)
+    db = db + sw[..., None] * gx
+    dx = dx + sw[..., None] * (bc @ g)
+    ds = (bc * gx).sum(-1)
+    ddt = ddt + ds * suffix
+    dcum = dcum - ds * sw
+    dtotal = (ds * sw).sum(-1) + decay * (h_in * g).sum((-1, -2))
+    dcum[..., -1] += dtotal
+    # cum = cumsum(dt a)
+    rcum = dcum.flip(-1).cumsum(-1).flip(-1)
+    ddt = ddt + a[:, None, None] * rcum
+    da = (dtc * rcum).sum((1, 2))
+    return (dx.reshape(bh, l, p), ddt.reshape(bh, l), da,
+            db.reshape(bh, l, n), dc.reshape(bh, l, n))
+
+
+class _SSDScan(torch.autograd.Function):
+    """The scan's forward by the kernels (``ssd_scan``, which also returns
+    the chunks' incoming states), ``_ssd_bwd``'s backward. Returns y, or
+    (y, h_final) with ``final_state``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk: int, final_state: bool):
+        out = ssd_kernel.ssd_scan(x, dt, a, b, c, chunk=chunk,
+                                  final_state=final_state, chunk_states=True)
+        ctx.save_for_backward(x, dt, a, b, c, out[-1])
+        ctx.chunk = chunk
+        return out[:2] if final_state else out[0]
+
+    @staticmethod
+    def backward(ctx, dy, dh=None):
+        x, dt, a, b, c, h_in = ctx.saved_tensors
+        return (*_ssd_bwd(x, dt, a, b, c, h_in, dy, dh, ctx.chunk), None,
+                None)
+
+
+def _ssd_chunked(x, dt, a, bmat, cmat, chunk: int,
+                 final_state: bool = True) -> tuple:
+    """Chunked SSD scan, one ``ssd_scan`` call (through ``_SSDScan`` when
+    an input needs a gradient).
 
     x: (B, S, H, P); dt: (B, S, H); a: (H,) negative; b/c: (B, S, N).
-    Returns (y, h_final) with y like x, h (B, H, N, P) fp32.
+    Returns (y, h_final) with y like x, h (B, H, N, P) fp32, or None
+    without ``final_state``.
     """
     bsz, s, nh, p = x.shape
     n = bmat.shape[-1]
@@ -71,13 +174,18 @@ def _ssd_chunked(x, dt, a, bmat, cmat, chunk: int) -> tuple:
         return t.float()[:, None].expand(bsz, nh, s, n).reshape(
             bsz * nh, s, n).contiguous()  # at B = 1 a reshape is a view
 
-    y, h = ssd_kernel.ssd_scan(
+    args = (
         x.float().permute(0, 2, 1, 3).reshape(bsz * nh, s, p).contiguous(),
         dt.float().permute(0, 2, 1).reshape(bsz * nh, s).contiguous(),
-        a.float().repeat(bsz), per_head(bmat), per_head(cmat), chunk=chunk,
-        final_state=True)
+        a.float().repeat(bsz), per_head(bmat), per_head(cmat))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        out = _SSDScan.apply(*args, chunk, final_state)
+    else:
+        out = ssd_kernel.ssd_scan(*args, chunk=chunk,
+                                  final_state=final_state)
+    y, h = out if final_state else (out, None)
     y = y.reshape(bsz, nh, s, p).permute(0, 2, 1, 3).to(x.dtype)
-    return y, h.reshape(bsz, nh, n, p)
+    return y, None if h is None else h.reshape(bsz, nh, n, p)
 
 
 class Mamba(nn.Module):
@@ -101,7 +209,8 @@ class Mamba(nn.Module):
         self.out_proj = param(dense_init(gen, d_in, d, device=device))
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
-        """Full-sequence (prefill) path, ``apply_mamba``. x: (B, S, D).
+        """Full-sequence (training, prefill) path, ``apply_mamba``. x:
+        (B, S, D).
 
         Returns ``(out, None)``, or with ``return_cache`` ``(out,
         (conv_state, ssm_state))`` for decode continuation: the last
@@ -126,7 +235,8 @@ class Mamba(nn.Module):
             xs, dt, bmat, cmat = (F.pad(t, (0, 0, 0, pad))
                                   for t in (xs, dt, bmat, cmat))
         xh = xs.reshape(bsz, s + pad, nh, hd)
-        y, h_final = _ssd_chunked(xh, dt, a, bmat, cmat, chunk)
+        y, h_final = _ssd_chunked(xh, dt, a, bmat, cmat, chunk,
+                                  final_state=return_cache)
         y = y + self.D.to(y.dtype)[None, None, :, None] * xh  # skip
         y = y.reshape(bsz, s + pad, d_in)[:, :s]
         y = rmsnorm(y * F.silu(z), self.gate_norm)            # gated norm

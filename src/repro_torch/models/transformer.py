@@ -10,7 +10,8 @@ Port of ``src/repro/models/transformer.py``. Families and their stacks:
 
 Entry points, with the reference's names and arguments:
   ``init_params``                      the ``Model`` (fp32 weights)
-  ``forward``                          teacher-forced logits
+  ``forward``                          teacher-forced logits (training;
+                                       ``remat``, ``pre_logits``)
   ``init_cache`` / ``prefill`` / ``decode_step``   serving
 
 What changed:
@@ -20,24 +21,34 @@ What changed:
     and layers run as a Python loop over them, not a ``lax.scan`` over
     stacked parameters. Caches keep the reference's stacked layout
     (``weights.from_reference`` maps the parameters).
-  * Prefill attention goes through the flash-attention kernel and every
-    Mamba layer through the SSD kernels (``attention.py``, ``mamba2.py``);
-    decode is plain PyTorch, as in the reference.
+  * Full-sequence attention (training, prefill) goes through the
+    flash-attention kernel and every Mamba layer through the SSD kernels
+    (``attention.py``, ``mamba2.py``, each with the reference's backward
+    in PyTorch); decode is plain PyTorch, as in the reference.
+  * ``remat`` wraps each rematerialised layer body in
+    ``torch.utils.checkpoint`` (non-reentrant): ``"full"`` recomputes the
+    whole body in the backward, ``"dots"`` keeps the outputs of its
+    products (``aten.mm`` / ``aten.addmm``, the counterpart of
+    ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest. As in
+    the reference it covers dense and Mamba layers, never the hybrid's
+    shared block. A recompute launches the kernels again.
   * ``decode_step`` writes the new token's k/v and Mamba states into the
     cache in place and returns it (copying a (B, max_len) cache every
     token would double decode's bytes); ``prefill`` computes the logits
     of the last position only, the one it returns.
   * ``init_params`` takes a ``torch.Generator`` and a device (the card
-    unless ``"cpu"`` is asked for). The weights are serving weights, with
-    no gradient: training, with the kernels' backward passes, is the next
-    slice. The ``moe``, ``audio`` and ``vlm`` families raise
-    ``NotImplementedError`` (ROADMAP Queue 1); ``remat`` and
-    ``pre_logits`` are training options and wait for it.
+    unless ``"cpu"`` is asked for); the weights are trainable
+    parameters. The ``moe``, ``audio`` and ``vlm`` families raise
+    ``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .. import cuda
 from ..configs.base import ArchConfig
@@ -114,15 +125,18 @@ class Block(nn.Module):
         self.norm2 = Norm(cfg, cfg.d_model, device)
         self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, gen, device)
 
+    def _body(self, x, positions, window) -> tuple:
+        h, kv = self.attn(self.norm1(x), positions, window=window)
+        x = x + h
+        return x + self.mlp(self.norm2(x)), kv
+
     def prefill(self, x, positions, *, window=None) -> tuple:
         """(x, (k, v)) with k/v in the cache dtype."""
-        h, (k, v) = self.attn(self.norm1(x), positions, window=window)
-        x = x + h
-        x = x + self.mlp(self.norm2(x))
+        x, (k, v) = self._body(x, positions, window)
         return x, (k.to(CACHE_DTYPE), v.to(CACHE_DTYPE))
 
     def forward(self, x, positions, *, window=None):
-        return self.prefill(x, positions, window=window)[0]
+        return self._body(x, positions, window)[0]
 
     def decode(self, x, cache_k, cache_v, idx, *, window=None):
         x = x + self.attn.decode(self.norm1(x), cache_k, cache_v, idx,
@@ -230,22 +244,43 @@ def _positions(cfg: ArchConfig, tokens) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ forward
-def _layers(cfg: ArchConfig, params: Model, x, positions, collect: bool):
+# the products whose outputs remat "dots" keeps
+_PRODUCTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` as the reference's ``_maybe_remat`` wraps a layer body."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _PRODUCTS))
+    raise ValueError(f"remat must be none, dots or full, not {remat!r}")
+
+
+def _layers(cfg: ArchConfig, params: Model, x, positions, collect: bool,
+            remat: str = "none"):
     """Run the stack; with ``collect`` also return the caches' parts in
     layer order: k/v of each attention site, (conv, ssm) of each Mamba
-    layer."""
+    layer. ``remat`` applies to dense and Mamba layers, not to the
+    hybrid's shared block."""
     kvs, mcs = [], []
 
     def mamba(blk, x):
         if not collect:
-            return blk(x)
+            return _maybe_remat(blk, remat)(x)
         x, mc = blk.prefill(x)
         mcs.append(mc)
         return x
 
-    def attend(blk, x, window):
+    def attend(blk, x, window, remat=remat):
         if not collect:
-            return blk(x, positions, window=window)
+            return _maybe_remat(functools.partial(
+                blk, positions=positions, window=window), remat)(x)
         x, kv = blk.prefill(x, positions, window=window)
         kvs.append(kv)
         return x
@@ -260,18 +295,23 @@ def _layers(cfg: ArchConfig, params: Model, x, positions, collect: bool):
         for group in params.mamba_groups:
             for blk in group:
                 x = mamba(blk, x)
-            x = attend(params.shared, x, cfg.window)
+            x = attend(params.shared, x, cfg.window, remat="none")
         for blk in params.mamba_tail:
             x = mamba(blk, x)
     return x, kvs, mcs
 
 
-def forward(cfg: ArchConfig, params: Model, batch: dict) -> torch.Tensor:
-    """Teacher-forced logits (B, S, V), float32."""
+def forward(cfg: ArchConfig, params: Model, batch: dict, *,
+            remat: str = "none", pre_logits: bool = False) -> torch.Tensor:
+    """Teacher-forced logits (B, S, V), float32. ``remat``: none | dots |
+    full, per layer body. ``pre_logits``: return the final-norm hidden
+    states instead of logits (the training loss computes chunked CE
+    itself)."""
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens)
-    x, _, _ = _layers(cfg, params, x, _positions(cfg, tokens), False)
-    return _unembed(cfg, params, params.final_norm(x))
+    x, _, _ = _layers(cfg, params, x, _positions(cfg, tokens), False, remat)
+    x = params.final_norm(x)
+    return x if pre_logits else _unembed(cfg, params, x)
 
 
 # ====================================================================== serve

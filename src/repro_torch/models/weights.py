@@ -1,4 +1,4 @@
-"""Load the reference's parameters into the port's ``Model``.
+"""Move parameters between the reference's tree and the port's ``Model``.
 
 No module of ``repro`` answers to this one: the reference keeps its
 parameters as one pytree with each layer kind's weights stacked along a
@@ -9,7 +9,10 @@ keeps one ``nn.Module`` a layer. ``from_reference`` unstacks the tree
 ``Model`` whose parameter names are the tree's paths: parameter
 ``mamba_groups.2.4.mamba.in_proj`` is
 ``tree["mamba_groups"]["mamba"]["in_proj"][2, 4]``. The tests hold the
-port against the reference on weights shared this way.
+port against the reference on weights shared this way. ``to_reference``
+goes the other way, for any tensors keyed by parameter name (gradients,
+optimizer moments too): the tests compare gradients leaf by leaf with
+it, and checkpoints keep the reference's on-disk layout through it.
 """
 from __future__ import annotations
 
@@ -48,12 +51,7 @@ def from_reference(cfg: ArchConfig, tree: Mapping, *,
     leaves = _leaves(tree)
     used = set()
     for name, p in model.named_parameters():
-        top, *rest = name.split(".")
-        index = ()
-        if top in STACKED:
-            depth = 2 if top == "mamba_groups" else 1
-            index, rest = tuple(int(i) for i in rest[:depth]), rest[depth:]
-        key = ".".join([top, *rest])
+        key, index = _stacked(name)
         if key not in leaves:
             raise ValueError(f"{cfg.name}: no reference leaf {key!r} for "
                              f"parameter {name!r}")
@@ -69,3 +67,55 @@ def from_reference(cfg: ArchConfig, tree: Mapping, *,
         raise ValueError(f"{cfg.name}: reference leaves with no parameter: "
                          f"{sorted(set(leaves) - used)}")
     return model
+
+
+def _stacked(name: str) -> tuple:
+    """(reference key, index) of a port parameter name: parameter
+    ``mamba_groups.2.4.mamba.in_proj`` is ``mamba_groups.mamba.in_proj``
+    at [2, 4]."""
+    top, *rest = name.split(".")
+    index = ()
+    if top in STACKED:
+        depth = 2 if top == "mamba_groups" else 1
+        index, rest = tuple(int(i) for i in rest[:depth]), rest[depth:]
+    return ".".join([top, *rest]), index
+
+
+def to_reference(cfg: ArchConfig, named: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse of ``from_reference``: tensors keyed by the port's
+    parameter names (parameters, their gradients or an optimizer's
+    moments) restacked into the reference's nested tree of numpy arrays,
+    each layer kind's tensors along a leading axis ([L, ...]; the
+    hybrid's ``mamba_groups`` [n_groups, every, ...]). bf16 tensors come
+    out as float32 (exact; numpy has no bf16). The arrays are copies.
+    Raises ``ValueError`` unless the names are exactly ``cfg``'s
+    parameters."""
+    want = {n for n, _ in Model(cfg, None, "meta").named_parameters()}
+    if set(named) != want:
+        raise ValueError(f"{cfg.name}: names differ from the model's "
+                         f"parameters: {sorted(set(named) ^ want)[:6]}")
+    parts: dict = {}
+    for name, t in named.items():
+        key, index = _stacked(name)
+        t = t.detach()
+        # a copy, never a view of a CPU tensor that training overwrites
+        parts.setdefault(key, {})[index] = (
+            t.float() if t.dtype == torch.bfloat16 else t).to(
+                "cpu", copy=True).numpy()
+    tree: dict = {}
+    for key, pieces in parts.items():
+        if () in pieces:
+            value = pieces[()]
+        else:
+            shape = tuple(max(i[d] for i in pieces) + 1
+                          for d in range(len(next(iter(pieces)))))
+            first = next(iter(pieces.values()))
+            value = np.empty(shape + first.shape, first.dtype)
+            for index, piece in pieces.items():
+                value[index] = piece
+        node = tree
+        *path, leaf = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return tree

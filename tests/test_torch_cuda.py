@@ -21,6 +21,14 @@ The model's call sites (``models/attention.py``, ``models/mamba2.py``)
 run their kernels against the plain versions with the same tolerances,
 and a tiny model on the card against the CPU within 0.05, the tolerance
 tests/test_models.py gives the reference's prefill against its forward.
+Training: the kernel's lse within float32 RTOL of the plain logsumexp
+and the SSD's chunk states within 3e-3 of ``ssd_plain``'s (the outputs
+bit-identical with and without them); the two call sites' autograd
+Functions against autograd through the plain versions (output and input
+gradients by relative error, RTOL of the dtype and 3e-3); one tiny train
+step on the card against the CPU in float32 compute, the loss within 1e-4
+and every parameter within 3e-5 (a tenth of the learning rate: AdamW's
+first step moves each by about lr).
 """
 import dataclasses
 import random
@@ -440,8 +448,8 @@ def test_flash_attention_launch_refuses_a_plan_outside_its_limits(
 
     def call(d, block_q, plan_args):
         return lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 256,
-            d, 2, block_q, 128, 1, -1, 0.125, *plan_args, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            4, 256, d, 2, block_q, 128, 1, -1, 0.125, *plan_args, stream)
 
     for i, bad in ((0, 2), (1, 96), (2, 512), (2, 128), (3, 32), (3, 16)):
         wrong = list(args)
@@ -600,11 +608,13 @@ def test_model_call_sites_match_plain(card, shape):
 
 
 @pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b"])
+@torch.no_grad()
 def test_tiny_model_on_card_matches_cpu(card, name):
     """One tiny model's weights on both devices: prefill through the
     kernels on the card (one flash-attention launch an attention site,
     one SSD launch a Mamba layer) and a decode step, against the CPU's
-    plain versions, within 0.05 (tests/test_models.py:74's tolerance)."""
+    plain versions, within 0.05 (tests/test_models.py:74's tolerance).
+    Serving only evaluates: no autograd graph (``torch.no_grad``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     cfg = get_config(name).tiny()
@@ -913,3 +923,155 @@ def test_de_fused_on_card_matches_numpy_drive_many(card):
     assert all(d.fuse == "device" for d in got)
     for a, b in zip(got, want):
         assert _state(a) == _state(b)
+
+
+# ---------------------------------------------------------------- training
+@pytest.mark.parametrize("group,tiling,causal,window", [
+    (2, (128, 128), True, None), (1, (64, 128), True, 64),
+    (4, (128, 256), False, None)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_lse_matches_plain(card, d, dtype, group, tiling,
+                                           causal, window):
+    """The kernel's lse output against ``attention_plain``'s logsumexp
+    (RTOL of float32: the lse is float32 whatever the operands), and its
+    output bit-identical with and without the lse."""
+    rng = np.random.default_rng(d + group)
+    s = 256
+    q = _randn(rng, (4, s, d), card).to(dtype)
+    k, v = (_randn(rng, (4 // group, s, d), card).to(dtype)
+            for _ in range(2))
+    kw = dict(block_q=tiling[0], block_kv=tiling[1], causal=causal,
+              window=window)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    _, lse_ref = fa.attention_plain(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (4, s)
+    torch.testing.assert_close(lse, lse_ref, rtol=RTOL[torch.float32],
+                               atol=RTOL[torch.float32])
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_ssd_chunk_states_match_plain(card, chunk):
+    """The chunks' incoming states (the state scratch after the state
+    pass) against ``ssd_plain``'s, 3e-3; y bit-identical with and without
+    them, with the final state too."""
+    x, dt, a, b, c = ssd.live_inputs({"bh": 6, "seq": 512, "p": 64,
+                                      "n": 64, "seed": chunk}, card)
+    y, states = ssd.ssd_scan(x, dt, a, b, c, chunk=chunk, chunk_states=True)
+    y_ref, states_ref = ssd.ssd_plain(x, dt, a, b, c, chunk=chunk,
+                                      chunk_states=True)
+    assert states.shape == (6, 512 // chunk, 64, 64)
+    torch.testing.assert_close(states, states_ref, rtol=3e-3, atol=3e-3)
+    assert torch.equal(y, ssd.ssd_scan(x, dt, a, b, c, chunk=chunk))
+    y2, h, states2 = ssd.ssd_scan(x, dt, a, b, c, chunk=chunk,
+                                  final_state=True, chunk_states=True)
+    assert torch.equal(y2, y) and torch.equal(states2, states)
+
+
+def _grads(out, inputs, seed):
+    cot = torch.randn(out.shape, generator=torch.Generator(
+        device=out.device).manual_seed(seed), device=out.device)
+    return torch.autograd.grad(out, inputs, cot.to(out.dtype))
+
+
+@pytest.mark.parametrize("s,h,hkv,window,dtype", [
+    (200, 4, 2, None, torch.float32), (256, 4, 1, 32, torch.float32),
+    (1000, 32, 32, None, torch.bfloat16)])
+def test_flash_function_grads_match_plain(card, s, h, hkv, window, dtype):
+    """``blockwise_attention`` under autograd (the kernel's forward, the
+    port's PyTorch backward) against autograd through
+    ``attention_reference`` on the card: output and dq, dk, dv within
+    RTOL of the operands' dtype (relative Frobenius error), and a flash
+    attention launch for the forward."""
+    from repro_torch.models import attention
+    rng = np.random.default_rng(s)
+    q = _randn(rng, (2, s, h, 64), card).to(dtype).requires_grad_()
+    k, v = (_randn(rng, (2, s, hkv, 64), card).to(dtype).requires_grad_()
+            for _ in range(2))
+    before = fa.launches
+    out = attention.blockwise_attention(q, k, v, window=window)
+    assert fa.launches == before + 1
+    ref = attention.attention_reference(q, k, v, window=window)
+    tol = RTOL[dtype]
+    for ours, want in zip((out, *_grads(out, (q, k, v), 1)),
+                          (ref, *_grads(ref, (q, k, v), 1))):
+        assert ((ours.float() - want.float()).norm()
+                / want.float().norm()) < tol
+
+
+@pytest.mark.parametrize("bsz,s,nh,p,n,chunk", [
+    (2, 48, 4, 32, 16, 16), (1, 1024, 64, 64, 64, 128)])
+def test_ssd_function_grads_match_plain(card, bsz, s, nh, p, n, chunk):
+    """``_ssd_chunked`` under autograd (the kernels' forward with the
+    chunks' states, the port's PyTorch backward) against autograd through
+    ``ssd_plain`` on the card: dx, ddt, da, dB, dC within 3e-3 (relative
+    Frobenius error); one SSD launch."""
+    from repro_torch.models import mamba2
+    rng = np.random.default_rng(s)
+    softplus = torch.nn.functional.softplus
+    x = _randn(rng, (bsz, s, nh, p), card).requires_grad_()
+    dt = (softplus(_randn(rng, (bsz, s, nh), card)) * 0.1).requires_grad_()
+    a = (-softplus(_randn(rng, (nh,), card))).requires_grad_()
+    bm, cm = (_randn(rng, (bsz, s, n), card).requires_grad_()
+              for _ in range(2))
+    inputs = (x, dt, a, bm, cm)
+    before = ssd.launches
+    y, _ = mamba2._ssd_chunked(*inputs, chunk, final_state=False)
+    assert ssd.launches == before + 1
+
+    def per_head(t):
+        return t[:, None].expand(bsz, nh, s, n).reshape(bsz * nh, s, n)
+
+    ref = ssd.ssd_plain(x.permute(0, 2, 1, 3).reshape(bsz * nh, s, p),
+                        dt.permute(0, 2, 1).reshape(bsz * nh, s),
+                        a.repeat(bsz), per_head(bm), per_head(cm),
+                        chunk=chunk)
+    ref = ref.reshape(bsz, nh, s, p).permute(0, 2, 1, 3)
+    for ours, want in zip((y, *_grads(y, inputs, 2)),
+                          (ref, *_grads(ref, inputs, 2))):
+        assert (ours - want).norm() / want.norm() < 3e-3
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b"])
+def test_tiny_train_step_on_card_matches_cpu(card, name, remat,
+                                             monkeypatch):
+    """One ``tiny()`` train step (remat full or dots, AdamW) on the card,
+    through the kernels and their backward passes, against the same step
+    on the CPU (the plain versions), in float32 compute (``COMPUTE_DTYPE``
+    patched, as tests/test_torch_training.py does): the loss within 1e-4
+    relative and every parameter within 3e-5, a tenth of the learning
+    rate (AdamW's first step moves each parameter by about lr whatever
+    its gradient's size, except where the gradient is within float32
+    noise of zero)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training import train_step as ts
+    monkeypatch.setattr(tf, "COMPUTE_DTYPE", torch.float32)
+    cfg = get_config(name).tiny()
+    opt = opt_mod.OptimizerConfig(peak_lr=3e-4, warmup_steps=1,
+                                  total_steps=10)
+    cpu = ts.init_train_state(cfg, opt, torch.Generator().manual_seed(0),
+                              device="cpu")
+    gpu = ts.init_train_state(cfg, opt, torch.Generator().manual_seed(1),
+                              device="cpu")
+    gpu["params"].load_state_dict(cpu["params"].state_dict())
+    gpu["params"].to(card)
+    gpu["opt"] = opt_mod.init_opt_state(
+        opt, dict(gpu["params"].named_parameters()))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 129))
+    step = ts.make_train_step(cfg, opt, ts.TrainConfig(remat=remat))
+    before = (fa.launches, ssd.launches)
+    _, m_gpu = step(gpu, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert fa.launches > before[0]
+    assert (ssd.launches > before[1]) == (cfg.family != "dense")
+    _, m_cpu = step(cpu, {"tokens": toks})
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) \
+        < 1e-4 * abs(float(m_cpu["loss"]))
+    for (name_, p), q in zip(gpu["params"].named_parameters(),
+                             cpu["params"].parameters()):
+        assert (p.detach().cpu() - q.detach()).abs().max() < 3e-5, name_

@@ -56,6 +56,14 @@ MODEL_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (0.05, 0.06)}
 B, S_FWD, S_PRE, MAX_LEN = 2, 36, 33, 48
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _evaluate_only():
+    """The port's weights are trainable parameters; these tests only
+    evaluate, as serving does, so they build no autograd graph."""
+    with torch.no_grad():
+        yield
+
+
 def _randn(rng, *shape, scale=1.0):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 
@@ -426,7 +434,7 @@ def test_init_params_draws_from_its_generator():
                            sc["mamba_groups.0.0.mamba.in_proj"])
     n_ref = sum(x.size for x in jax.tree.leaves(_ref_params("zamba2-1.2b")))
     assert sum(p.numel() for p in a.parameters()) == n_ref
-    assert not any(p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())  # trainable
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             tf.init_params(cfg)

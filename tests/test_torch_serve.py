@@ -39,6 +39,14 @@ from repro_torch.models.weights import from_reference
 ARCHS = ["gemma3-1b", "olmo-1b", "mamba2-130m", "zamba2-1.2b"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _evaluate_only():
+    """The port's weights are trainable parameters; these tests only
+    evaluate, as serving does, so they build no autograd graph."""
+    with torch.no_grad():
+        yield
+
+
 def _model(name: str):
     cfg = configs.get_config(name).tiny()
     return cfg, tf.init_params(cfg, torch.Generator().manual_seed(0),

@@ -289,7 +289,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((SRC / "repro_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
     assert len(files) > 20
-    for sub in ("configs", "models", "inference", "launch", "serving"):
+    for sub in ("configs", "models", "inference", "launch", "serving",
+                "data", "training", "checkpoint"):
         assert SRC / "repro_torch" / sub / "__init__.py" in files, sub
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
