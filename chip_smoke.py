@@ -150,26 +150,66 @@ Phases (any failure ends the script with a non-zero exit):
      memory, and by ``torch.profiler`` on step 7 the kernels' share of
      the device time, the shares of the two backward Functions'
      autograd nodes and the largest kernels, each beside the card's
-     name and power limit.
+     name and power limit;
+  9. the main path, part six: the moe, audio and vlm families, random
+     float32 weights from a seeded generator, cast to bf16 where used,
+     each model built on the card: (a) whisper-small at full width and
+     depth (12 encoder layers over 1,500 frames, padded to 1,536 and
+     bounded by the kernel's ``kv_len``; 12 decoder layers): one prefill
+     of ``TokenPipeline``'s audio (normal x 0.1) with the first encoder
+     and the first cross-attention call captured, each held against
+     ``attention_plain`` (the output at bf16's RTOL, each row's lse at
+     float32's, which a lost key-length mask fails) and timed beside
+     the plain version,
+     SDPA over the 1,500 real keys and the bound; prefill of 255 tokens
+     and one decode step against ``forward`` (0.05; 0.3 of the spread);
+     then ``ServingEngine.generate`` of 4 requests of 256 tokens, 32 new
+     each, max_len 448, with every launch counter set to 0 before and
+     read after: exactly 36 flash-attention launches and no other; (b)
+     whisper-small trained 8 steps (``TokenPipeline`` 4 x 448, remat
+     full, AdamW as phase 8): at step 0's first cross-attention call's
+     shapes ``_Flash`` against autograd through ``attention_plain``
+     (output and gradients in float32 and bf16, each at its RTOL; bf16's
+     dq against ``dq_same_algorithm``, whose delta reads the bf16
+     output as the flash backward's does), every launch counter around step
+     1 (exactly 60: 12 encoder, 24 decoder and 24 in the recompute), the
+     loss finite and lower at the last step than at the first; (c)
+     qwen2-vl-2b at full width and depth served as (a), 4 requests of
+     1,024 tokens (zero patch embeddings, M-RoPE positions), its first
+     attention call held against the plain version as (a), exactly 28
+     launches;
+     (d) qwen3-moe-235b-a22b at full width with its depth cut from 94 to
+     4 layers (one layer's experts hold 9.66 GB in float32) served as
+     (c), with ``moe_routing`` at each layer of a prefill (the share of
+     (token, expert) choices dropped by capacity and what decides it),
+     layer 0's MoE on one row held against the same module on the CPU in
+     float32 (routes equal, output at float32's RTOL), exactly 4
+     launches; each part's prefill
+     ms and decode ms a token (CUDA events), tokens/s, peak memory and
+     the kernel's share of a prefill (``torch.profiler``), beside the
+     card's name and power limit.
 
 Before phase 5 every recording is checked to let a tuning run end
-(``ends_check``); phases 5, 6, 7 and 8 each fail past a wall-clock
+(``ends_check``); phases 5, 6, 7, 8 and 9 each fail past a wall-clock
 limit.
 The budget-scan launches of phases 5-6 are printed by strategy and
 campaign.
 
 Kernel launch counters are set to 0 just before phase 4 and read just
 after phase 6, again just before phase 7's (d) and read just after it,
-and again around phase 8's step 1; each kernel must have launched in
+again around phase 8's step 1, and around each main path of phase 9
+(each generate, whisper's step 1); each kernel must have launched in
 phases 4-6, flash attention and the SSD exactly once an attention site
-and a Mamba layer in phase 7's (d), and 6 and 76 times in phase 8's
-step. The line before the last is the JSON summary of every kernel, its
-launches those of the three main paths; the last line is the device
-record ``{"ok": true, "device": {...}}``.
+and a Mamba layer in phase 7's (d), 6 and 76 times in phase 8's step,
+and flash attention alone 36, 60, 28 and 4 times in phase 9. The line
+before the last is the JSON summary of every kernel, its launches those
+of the main paths; the last line is the device record ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import pathlib
@@ -288,6 +328,20 @@ PROFILE_TOP = 12             # kernels listed by device time (prefill, step)
 TRAIN_ARCH = "zamba2-1.2b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_SAVE_AT = 4, 1024, 8, 4
 TRAIN_LIMIT_S = 240          # phase 8 fails past this wall-clock limit
+# phase 9: whisper-small (configs/whisper_small.py) at full width and
+# depth, served (12 encoder calls over 1,500 frames, 12 self- and 12
+# cross-attention calls a prefill) and trained (remat full: 60 calls a
+# step); qwen2-vl-2b served (28 a prefill); qwen3-moe-235b-a22b served at
+# full width with its depth cut to 4 layers (one layer's experts hold 9.66
+# GB in float32: 94 do not fit one card)
+WHISPER_ARCH, VLM_ARCH, MOE_ARCH = ("whisper-small", "qwen2-vl-2b",
+                                    "qwen3-moe-235b-a22b")
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW = 4, 256, 32
+WHISPER_MAX_LEN = 448        # whisper's decoder context
+WHISPER_TRAIN_SEQ, WHISPER_STEPS = 448, 8
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW, FAMILY_MAX_LEN = 4, 1024, 32, 2048
+MOE_LAYERS = 4
+FAMILY_LIMIT_S = 240         # phase 9 fails past this wall-clock limit
 
 
 def fail(msg: str) -> None:
@@ -1760,21 +1814,23 @@ def meta_campaign(caches, device: str, repeats: int, out_dir: pathlib.Path,
 
 # ----------------------------------------------------------------- phase 7
 class Capture:
-    """Keep a copy of the inputs of the first call of a kernel wrapper
-    (``module.attr``) while the ``with`` block runs; the call itself goes
-    on to the wrapper."""
+    """Keep a copy of the inputs of call number ``at`` (from 0: the first)
+    of a kernel wrapper (``module.attr``) while the ``with`` block runs;
+    the call itself goes on to the wrapper."""
 
-    def __init__(self, module, attr: str):
-        self.module, self.attr = module, attr
+    def __init__(self, module, attr: str, at: int = 0):
+        self.module, self.attr, self.at = module, attr, at
         self.args = self.kwargs = None
+        self.calls = 0
 
     def __enter__(self):
         wrapped = getattr(self.module, self.attr)
 
         def first(*args, **kwargs):
-            if self.args is None:
-                self.args = tuple(t.clone() for t in args)
+            if self.calls == self.at:
+                self.args = tuple(t.detach().clone() for t in args)
                 self.kwargs = dict(kwargs)
+            self.calls += 1
             return wrapped(*args, **kwargs)
 
         setattr(self.module, self.attr, first)
@@ -2038,9 +2094,11 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     return ((out - ref).norm() / ref.norm().clamp_min(1e-30)).item()
 
 
-def grads_agree(what: str, names, ours, refs, tol: float) -> float:
+def grads_agree(what: str, names, ours, refs, tol: float,
+                oracle: str = "autograd through the plain version") -> float:
     """Each of ``ours`` (an output, then gradients) within ``tol`` of
-    ``refs`` by relative Frobenius error; returns the largest max |err|."""
+    ``refs`` (from ``oracle``) by relative Frobenius error; returns the
+    largest max |err|."""
     worst = 0.0
     for name, out, ref in zip(names, ours, refs):
         err = rel_err(out, ref)
@@ -2049,8 +2107,7 @@ def grads_agree(what: str, names, ours, refs, tol: float) -> float:
               f"max |err| {(out.float() - ref.float()).abs().max().item():.4g}"
               f" {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"{what}: {name} disagrees with autograd through the plain "
-                 f"version")
+            fail(f"{what}: {name} disagrees with {oracle}")
         worst = max(worst, (out.float() - ref.float()).abs().max().item())
     return worst
 
@@ -2067,28 +2124,28 @@ def check_train_attention(args: tuple, kwargs: dict) -> dict:
     q, k, v = args
     bh, s, d = q.shape
     causal, window = kwargs["causal"], kwargs["window"]
-    tile = kwargs["block_q"]
+    tile, kv_len = kwargs["block_q"], kwargs["kv_len"]
+    plain = dict(causal=causal, window=window, kv_len=kv_len)
     out, lse = fa.flash_attention(q, k, v, **kwargs)
-    _, lse_ref = fa.attention_plain(q, k, v, causal=causal, window=window,
-                                    return_lse=True)
+    _, lse_ref = fa.attention_plain(q, k, v, return_lse=True, **plain)
     agree(f"train attention {bh}x{s}x{d} {q.dtype}: lse", lse, lse_ref,
           RTOL[torch.float32])
     gen = torch.Generator(device=q.device).manual_seed(8)
     dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    ours = attention._Flash.apply(*leaves, tile, causal, window)
+    ours = attention._Flash.apply(*leaves, tile, kwargs["block_kv"], causal,
+                                  window, kv_len)
     ours = (ours, *torch.autograd.grad(ours, leaves, dout))
-    ref = fa.attention_plain(*leaves, causal=causal, window=window)
+    ref = fa.attention_plain(*leaves, **plain)
     ref = (ref, *torch.autograd.grad(ref, leaves, dout))
     err = grads_agree(f"train attention {bh}x{s}x{d}",
                       ("out", "dq", "dk", "dv"), ours, ref,
                       RTOL[torch.bfloat16])
     fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kwargs))
     bwd_ms = time_ms(lambda: attention._flash_bwd(
-        q, k, v, out, lse, dout, causal=causal, window=window))
+        q, k, v, out, lse, dout, **plain))
     plain_ms = time_ms(lambda: torch.autograd.grad(
-        fa.attention_plain(*leaves, causal=causal, window=window), leaves,
-        dout))
+        fa.attention_plain(*leaves, **plain), leaves, dout))
     print(f"  train attention {bh}x{s}x{d}: kernel forward with lse "
           f"{fwd_ms:.4f} ms, PyTorch backward {bwd_ms:.4f} ms, plain "
           f"forward + backward {plain_ms:.4f} ms")
@@ -2339,6 +2396,459 @@ def train(device: str, card: str, limit_s: int) -> dict:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- phase 9
+def free_card() -> None:
+    """Return the last part's memory to the card before the next."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_family_attention(what: str, args: tuple, kwargs: dict,
+                           card: str) -> None:
+    """One captured flash-attention call of a phase 9 prefill: the kernel
+    against ``attention_plain`` on the card, the output within bf16's
+    RTOL and each row's lse within float32's (the lse is what shows a
+    lost key-length mask: the pad keys are zeros, so an unmasked kernel
+    adds Skv - kv_len scores of 0 to each row's sum, which moves the
+    output by about a per cent of its small spread but the lse by up to
+    log(1 + 36 / 1500) at whisper's shapes, far past float32's RTOL);
+    timed beside the plain version, the bound and SDPA over the real keys
+    alone (the same function: the pad keys are masked), each printed."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = args
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    kwargs = {**kwargs, "return_lse": False}
+    causal, window = kwargs["causal"], kwargs["window"]
+    kv_len = kwargs["kv_len"]
+    plain = dict(causal=causal, window=window, kv_len=kv_len)
+    call = (f"{what} {bh}x{sq}x{d} over {k.shape[0]}x{skv} (kv_len "
+            f"{kv_len}) bf16 causal {causal} tiles ({kwargs['block_q']},"
+            f"{kwargs['block_kv']})")
+    out, lse = fa.flash_attention(q, k, v, **{**kwargs, "return_lse": True})
+    out_ref, lse_ref = fa.attention_plain(q, k, v, return_lse=True, **plain)
+    agree(call, out.float(), out_ref.float(), RTOL[torch.bfloat16])
+    agree(f"{call}: lse", lse, lse_ref, RTOL[torch.float32])
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, **kwargs))
+    plain_ms = time_ms(lambda: fa.attention_plain(q, k, v, **plain), reps=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kr, vr = k[None, :, :kv_len], v[None, :, :kv_len]
+    library_ms = time_ms(lambda: sdpa(q[None], kr, vr, is_causal=causal,
+                                      enable_gqa=True))
+    pairs = sq * (sq + 1) / 2 if causal else sq * kv_len
+    ops_ms = 4.0 * bh * pairs * d / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = (nbytes(q, k, v) + nbytes(q)) / PEAK_BYTES * 1e3
+    print(f"  [{card}] {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, SDPA {library_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} "
+          f"ms (operations {ops_ms:.4f} at the bf16 rate, bytes "
+          f"{bytes_ms:.4f})")
+
+
+def serve_family(cfg, model, device: str, card: str, tokens, new: int,
+                 max_len: int, want: int) -> int:
+    """``ServingEngine.generate`` of one request a row of ``tokens``,
+    ``new`` tokens each, with every launch counter set to 0 before and
+    read after: exactly ``want`` flash-attention launches (the prefill's;
+    decode is plain) and no other. Prints prefill ms and decode ms a token
+    (CUDA events), tokens/s, peak memory and by ``torch.profiler`` the
+    kernel's share of a prefill; returns the launches."""
+    from repro_torch.inference.engine import (Request, ServingEngine,
+                                              family_inputs)
+    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.models import transformer as tf
+    b, plen = tokens.shape
+    engine = ServingEngine(cfg, model, max_len=max_len)
+    reqs = [Request(prompt=row, max_new_tokens=new)
+            for row in tokens.tolist()]
+    for mod in ALL_KERNELS.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = engine.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  {cfg.name}: {b} requests of {plen} tokens, {new} new each, "
+          f"max_len {max_len}: launches {launches}")
+    if launches != {**{k: 0 for k in launches}, "flash_attention": want}:
+        fail(f"{cfg.name}: one generate made {launches} kernel launches, "
+             f"not {want} flash-attention launches alone")
+    if [len(o) for o in outs] != [new] * b or not all(
+            0 <= x < cfg.vocab for o in outs for x in o):
+        fail(f"{cfg.name}: the engine returned malformed tokens")
+    t = engine.timings
+    device_s = (t["prefill_ms"] + t["decode_ms"]) / 1e3
+    print(f"  [{card}] {cfg.name}: prefill {t['prefill_ms']:.3f} ms; decode "
+          f"{t['decode_ms'] / t['steps']:.4f} ms a token ({t['steps']} "
+          f"steps of batch {b}); {b * new / device_s:.1f} tokens/s "
+          f"generated over prefill + decode ({b * plen / t['prefill_ms'] * 1e3:.0f}"
+          f" prompt tokens/s in prefill); host wall {wall:.3f} s; peak "
+          f"memory {peak:.3f} GB")
+    batch = {"tokens": tokens, **family_inputs(cfg, b, plen, device)}
+    with torch.inference_mode():
+        prof = device_profile(lambda: tf.prefill(cfg, model, batch, max_len))
+        pre_ms = time_ms(lambda: tf.prefill(cfg, model, batch, max_len),
+                         reps=5)
+    if prof is None:
+        print(f"  [{card}] {cfg.name}: the kernel's share of a prefill: not "
+              f"measured (the profiler traced no kernel)")
+    else:
+        print(f"  [{card}] {cfg.name}: prefill {pre_ms:.3f} ms (CUDA events, "
+              f"median of 5); device time by torch.profiler: all kernels "
+              f"{prof['all']:.3f} ms ({prof['all'] / pre_ms:.3f} of the "
+              f"prefill) in {prof['launches']} launches, flash attention "
+              f"{prof['attention']:.3f} ms ({want} launches, "
+              f"{prof['attention'] / pre_ms:.3f})")
+        for key, ms, count in prof["top"][:6]:
+            print(f"    {ms:9.3f} ms {count:5d}x {key[:90]}")
+    return launches["flash_attention"]
+
+
+def seeded_model(cfg, device: str):
+    from repro_torch.models import transformer as tf
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"  {cfg.name}: {cfg.n_layers} layers"
+          f"{f' + {cfg.n_encoder_layers} encoder' if cfg.n_encoder_layers else ''}"
+          f", d {cfg.d_model}, {n:,} float32 parameters ({n * 4 / 1e9:.2f} "
+          f"GB), built in {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def prompts(cfg, device: str, b: int, s: int):
+    gen = torch.Generator(device=device).manual_seed(1)
+    return torch.randint(0, cfg.vocab, (b, s), generator=gen, device=device)
+
+
+def whisper_serve(device: str, card: str) -> int:
+    """Phase 9 (a): whisper-small at full width and depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tf
+    cfg = get_config(WHISPER_ARCH)
+    model = seeded_model(cfg, device)
+    # the engine feeds zero audio, under which every encoder score is
+    # equal: the kernel is held on the pipeline's audio (normal x 0.1)
+    pipe = TokenPipeline(DataConfig(cfg.vocab, WHISPER_PROMPT,
+                                    WHISPER_BATCH), cfg)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in pipe.batch_at(0).items()}
+    batch["tokens"] = batch["tokens"][:, :WHISPER_PROMPT].long()
+    first_cross = cfg.n_encoder_layers + 1  # after layer 0's self-attention
+    with Capture(fa, "flash_attention") as enc, \
+            Capture(fa, "flash_attention", at=first_cross) as cross, \
+            torch.inference_mode():
+        tf.prefill(cfg, model, batch, WHISPER_MAX_LEN)
+        full = tf.forward(cfg, model, batch)
+        last, cache, n = tf.prefill(cfg, model, {
+            **batch, "tokens": batch["tokens"][:, :-1]}, WHISPER_MAX_LEN)
+        step, _ = tf.decode_step(cfg, model, cache, batch["tokens"][:, -1:],
+                                 n)
+    err_last = (last - full[:, -2]).abs().max().item()
+    spread = full[:, -1].std().item() + 1e-6
+    err_step = (step - full[:, -1]).abs().max().item()
+    ok = (bool(torch.isfinite(full).all()) and err_last < 0.05
+          and err_step / spread < 0.3)
+    print(f"  (a) prefill of {WHISPER_PROMPT - 1} tokens against forward: "
+          f"max |err| {err_last:.6g} (limit 0.05); one decode step: max "
+          f"|err| {err_step:.6g}, {err_step / spread:.4f} of the logits' "
+          f"spread (limit 0.3) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("whisper: prefill and decode disagree with forward")
+    del full, cache
+    with torch.inference_mode():
+        check_family_attention("(a) whisper encoder attention", enc.args,
+                               enc.kwargs, card)
+        check_family_attention("(a) whisper cross-attention", cross.args,
+                               cross.kwargs, card)
+    launches = serve_family(cfg, model, device, card,
+                            prompts(cfg, device, WHISPER_BATCH,
+                                    WHISPER_PROMPT),
+                            WHISPER_NEW, WHISPER_MAX_LEN,
+                            cfg.n_encoder_layers + 2 * cfg.n_layers)
+    return launches
+
+
+def whisper_train(device: str, card: str) -> int:
+    """Phase 9 (b): whisper-small trained for ``WHISPER_STEPS`` steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import ALL_KERNELS
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.train_step import (TrainConfig,
+                                                 init_train_state,
+                                                 make_train_step)
+    cfg = get_config(WHISPER_ARCH)
+    opt = OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                          total_steps=WHISPER_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, opt, torch.Generator(
+        device=device).manual_seed(0), device=device)
+    step_fn = make_train_step(cfg, opt, TrainConfig(remat="full"))
+    pipe = TokenPipeline(DataConfig(cfg.vocab, WHISPER_TRAIN_SEQ,
+                                    WHISPER_BATCH), cfg)
+    losses, step_ms = [], []
+
+    def one_step(i):
+        nonlocal state
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step_fn(state, pipe.batch_at(i))
+        end.record()
+        end.synchronize()
+        losses.append(m["loss"].item())
+        step_ms.append(start.elapsed_time(end))
+
+    with Capture(fa, "flash_attention", at=cfg.n_encoder_layers + 1) as x:
+        one_step(0)
+    check_cross_site(x.args, x.kwargs)
+    for mod in ALL_KERNELS.values():
+        mod.launches = 0
+    one_step(1)
+    launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
+    want = cfg.n_encoder_layers + 4 * cfg.n_layers  # remat full: 2 x 24
+    print(f"  (b) step 1: launches {launches}")
+    if launches != {**{k: 0 for k in launches}, "flash_attention": want}:
+        fail(f"whisper train: one step made {launches} kernel launches, "
+             f"not {want} flash-attention launches alone")
+    for i in range(2, WHISPER_STEPS):
+        one_step(i)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  (b) loss by step: {[round(x, 4) for x in losses]}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"whisper train: the loss is not finite or did not fall: "
+             f"{losses}")
+    med = statistics.median(step_ms[1:])
+    tokens = WHISPER_BATCH * WHISPER_TRAIN_SEQ
+    print(f"  (b) [{card}] step {med:.1f} ms (CUDA events, median of steps "
+          f"1-{WHISPER_STEPS - 1}, {min(step_ms[1:]):.1f}-"
+          f"{max(step_ms[1:]):.1f}), {tokens / med * 1e3:.0f} decoder "
+          f"tokens/s ({WHISPER_BATCH} x {cfg.n_audio_frames} frames a step "
+          f"beside); warm-up step {step_ms[0]:.1f} ms; peak memory "
+          f"{peak:.3f} GB")
+    return launches["flash_attention"]
+
+
+def dq_same_algorithm(q, k, v, out, dout, *, causal, window, kv_len):
+    """dq of attention in float64 by the flash backward's algorithm, from
+    the materialized masked softmax: dq = scale * sum_j p_j (dp_j - delta)
+    k_j with delta = sum(dout * out) read from the given ``out`` (the
+    forward's bf16 output, as the flash backward reads it) instead of the
+    exact output autograd's softmax gradient uses. The oracle of a bf16
+    dq: the rounding of ``out`` that both packages' backward share is in
+    it, and nothing else of theirs."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    group = bh // k.shape[0]
+    kf = torch.repeat_interleave(k, group, dim=0).double()
+    vf = torch.repeat_interleave(v, group, dim=0).double()
+    scale = d ** -0.5
+    s = torch.einsum("hqd,hkd->hqk", q.double(), kf) * scale
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    kv_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = kv_pos < kv_len
+    if causal:
+        mask = mask & (q_pos >= kv_pos)
+    if window is not None:
+        mask = mask & ((q_pos - kv_pos) < window)
+    p = torch.softmax(torch.where(mask, s, -torch.inf), dim=-1)
+    dp = torch.einsum("hqd,hkd->hqk", dout.double(), vf)
+    delta = (dout.double() * out.double()).sum(-1, keepdim=True)
+    return torch.einsum("hqk,hkd->hqd", p * (dp - delta), kf) * scale
+
+
+def check_cross_site(args: tuple, kwargs: dict) -> None:
+    """The first cross-attention call of a whisper-small train step, as
+    captured (bf16, the decoder's 448 tokens padded to 512 over 1,536
+    keys of which 1,500 are real): the kernel's lse against the plain
+    logsumexp (float32 RTOL); the ``_Flash`` Function (kernel forward,
+    PyTorch backward) against autograd through ``attention_plain`` on the
+    card by relative error, in float32 (the captured inputs cast, the
+    kernel's float32 instantiation) and in bf16, each within its dtype's
+    RTOL; bf16's dq against ``dq_same_algorithm`` instead. In bf16 the
+    flash backward's delta = sum(dout * out) reads the bf16-rounded
+    output (the reference's custom VJP does the same); with near-uniform
+    attention over 1,500 keys that share a common component, dq cancels,
+    and that rounding shows in it, in the reference's VJP as in the
+    port's (tests/test_torch_training.py
+    ``test_flash_backward_bf16_dq_cancels_as_the_reference``), so against
+    autograd it is printed only."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention
+    kw = dict(kwargs)
+    kw.pop("return_lse")
+    plain = dict(causal=kw["causal"], window=kw["window"],
+                 kv_len=kw["kv_len"])
+    what = (f"(b) train cross-attention {tuple(args[0].shape)} over "
+            f"{tuple(args[1].shape)} kv_len {kw['kv_len']}")
+    _, lse = fa.flash_attention(*args, return_lse=True, **kw)
+    _, lse_ref = fa.attention_plain(*args, return_lse=True, **plain)
+    agree(f"{what}: lse", lse, lse_ref, RTOL[torch.float32])
+    gen = torch.Generator(device=args[0].device).manual_seed(8)
+    dout = torch.randn(args[0].shape, generator=gen, device=args[0].device)
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in args]
+        cot = dout.to(dtype)
+        ours = attention._Flash.apply(*leaves, kw["block_q"], kw["block_kv"],
+                                      kw["causal"], kw["window"],
+                                      kw["kv_len"])
+        ours = (ours, *torch.autograd.grad(ours, leaves, cot))
+        ref = fa.attention_plain(*leaves, **plain)
+        ref = (ref, *torch.autograd.grad(ref, leaves, cot))
+        names = ("out", "dq", "dk", "dv")
+        held = [i for i in range(4) if dtype == torch.float32 or i != 1]
+        grads_agree(f"{what} {str(dtype)[6:]}", [names[i] for i in held],
+                    [ours[i] for i in held], [ref[i] for i in held],
+                    RTOL[dtype])
+        if dtype == torch.bfloat16:
+            print(f"  {what} bfloat16: dq against autograd (exact delta): "
+                  f"relative error {rel_err(ours[1], ref[1]):.3g}")
+            grads_agree(f"{what} bfloat16, delta from the bf16 output",
+                        ["dq"], [ours[1]], [dq_same_algorithm(
+                            *(t.detach() for t in leaves), ours[0].detach(),
+                            cot, **plain)], RTOL[dtype],
+                        "dq_same_algorithm")
+
+
+def moe_routing(mod, x, gen) -> dict:
+    """What decides the MoE's drops at one layer's input ``x`` (B, S, D):
+    the share of (token, expert) choices dropped by capacity; the share
+    of a token's experts that its predecessor also chose (k / E for
+    independent choices); the share of the input's energy in each row's
+    mean token (the component all tokens of a row share); the largest
+    expert load over the capacity; and the drop share of the same router
+    on the input with the row mean taken out, and on independent normal
+    tokens of the input's rms."""
+    cfg = mod.cfg
+    _, top_e, _, keep, cap = mod.route(x)
+    xf = x.float()
+    mean = xf.mean(1, keepdim=True)
+    load = torch.nn.functional.one_hot(top_e.flatten(1),
+                                       cfg.n_experts).sum(1)
+    noise = torch.randn(xf.shape, generator=gen, device=x.device)
+    noise = noise * xf.pow(2).mean().sqrt()
+    return {
+        "dropped": (~keep).float().mean().item(),
+        "neighbour_overlap": (top_e[:, 1:, :, None] == top_e[:, :-1, None, :]
+                              ).any(-1).float().mean().item(),
+        "common_energy": (mean.pow(2).sum(-1)[:, 0]
+                          / xf.pow(2).sum(-1).mean(1)).mean().item(),
+        "max_load_over_cap": load.max().item() / cap,
+        "dropped_mean_removed": (~mod.route((xf - mean).to(x.dtype))[3]
+                                 ).float().mean().item(),
+        "dropped_iid_normal": (~mod.route(noise.to(x.dtype))[3]
+                               ).float().mean().item()}
+
+
+def check_moe_layer(moe, x: torch.Tensor) -> None:
+    """A full-width MoE layer on the card against the same module and
+    weights on the CPU, in float32 (TF32 off), on one row of the layer's
+    captured prefill input (the capacity is a row's): the routes (experts
+    and kept choices) equal and the output within float32's RTOL by
+    relative error."""
+    x = x.float()
+    with torch.inference_mode():
+        card = moe(x).cpu()
+        route_card = [t.cpu() for t in moe.route(x)[1:4:2]]
+    device = x.device
+    moe.to("cpu")
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            host = moe(x.cpu())
+            host_s = time.perf_counter() - t0
+            route_host = moe.route(x.cpu())[1:4:2]
+    finally:
+        moe.to(device)
+    moved = sum(int((a != b).sum()) for a, b in zip(route_card, route_host))
+    err = rel_err(card, host)
+    ok = moved == 0 and err <= RTOL[torch.float32]
+    print(f"  layer 0's MoE on one row of {x.shape[1]} tokens, float32, card "
+          f"against CPU ({host_s:.1f} s there): {moved} route entries "
+          f"differ, output relative error {err:.3g} (limit "
+          f"{RTOL[torch.float32]:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the MoE on the card disagrees with the same module on the CPU")
+
+
+def family_serve(arch: str, device: str, card: str, layers=None) -> int:
+    """Phase 9 (c) and (d): a decoder-only family served at full width
+    (depth cut to ``layers`` where given), its first prefill attention
+    call held against the plain version; for MoE, ``moe_routing`` at each
+    layer of a prefill and ``check_moe_layer`` at layer 0."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.inference.engine import family_inputs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tf
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = seeded_model(cfg, device)
+    tokens = prompts(cfg, device, FAMILY_BATCH, FAMILY_PROMPT)
+    batch = {"tokens": tokens, **family_inputs(cfg, FAMILY_BATCH,
+                                               FAMILY_PROMPT, device)}
+    routing, first = [], []
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def hook(mod, args, out):
+        routing.append(moe_routing(mod, args[0], gen))
+        if not first:
+            first.append(args[0][:1].clone())
+
+    hooks = [blk.moe.register_forward_hook(hook)
+             for blk in model.layers if blk.moe is not None]
+    with Capture(fa, "flash_attention") as attn, torch.inference_mode():
+        tf.prefill(cfg, model, batch, FAMILY_MAX_LEN)
+    for h in hooks:
+        h.remove()
+    if routing:
+        print(f"  {cfg.name}: routing at each layer's MoE input in a prefill "
+              f"(capacity factor {cfg.capacity_factor}, top {cfg.top_k} of "
+              f"{cfg.n_experts}; independent choices overlap "
+              f"{cfg.top_k / cfg.n_experts:.4f}):")
+        for key in routing[0]:
+            print(f"    {key}: {[round(r[key], 4) for r in routing]}")
+        check_moe_layer(model.layers[0].moe, first[0])
+    with torch.inference_mode():
+        check_family_attention(f"{cfg.name} attention", attn.args,
+                               attn.kwargs, card)
+    return serve_family(cfg, model, device, card, tokens, FAMILY_NEW,
+                        FAMILY_MAX_LEN, cfg.n_layers)
+
+
+def families(device: str, card: str, limit_s: int) -> int:
+    """Phase 9: the moe, audio and vlm families on the card. Returns the
+    flash-attention launches of its main paths (each part's generate and
+    whisper's training step 1). Fails past ``limit_s`` seconds of wall
+    clock."""
+    time_limit(9, limit_s)
+    try:
+        launches = 0
+        for part, fn in (("(a) serving whisper-small", whisper_serve),
+                         ("(b) training whisper-small", whisper_train),
+                         ("(c) serving qwen2-vl-2b", functools.partial(
+                             family_serve, VLM_ARCH)),
+                         ("(d) serving qwen3-moe-235b-a22b, 4 of 94 layers",
+                          functools.partial(family_serve, MOE_ARCH,
+                                            layers=MOE_LAYERS))):
+            t0 = time.perf_counter()
+            print(f"  {part}")
+            launches += fn(device, card)
+            free_card()
+            print(f"  [{part}: {time.perf_counter() - t0:.1f} s]")
+        return launches
+    finally:
+        signal.alarm(0)
+
+
 # ----------------------------------------------------------------- driver
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2453,7 +2963,15 @@ def main() -> int:
     print(f"  [phase 8: {time.perf_counter() - t0:.1f} s]")
     for name, n in trained.items():
         launches[name] += n
-    print(f"  launches on the main paths (phases 4-6, 7 and 8): {launches}")
+    print(f"[9] main path: the moe, audio and vlm families at full width: "
+          f"{WHISPER_ARCH} served and trained, {VLM_ARCH} served, "
+          f"{MOE_ARCH} served at {MOE_LAYERS} layers")
+    t0 = time.perf_counter()
+    launches["flash_attention"] += families(device, smi.stdout.strip(),
+                                            FAMILY_LIMIT_S)
+    print(f"  [phase 9: {time.perf_counter() - t0:.1f} s]")
+    print(f"  launches on the main paths (phases 4-6, 7, 8 and 9): "
+          f"{launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"  total {time.perf_counter() - t_start:.1f} s")

@@ -13,12 +13,17 @@ instantiation (d 64, 128 and 256, float32 and bf16, both block shapes)
 causal, non-causal and with a window, with GQA; the serving shapes of
 ``chip_smoke.py`` phase 7; the SSD at chunks 16 to 512 with and without
 the final state; a prefill (logits and caches) and a forward of
-zamba2-1.2b at full width on 2 x 1024 tokens. A change that is meant to
-leave these outputs alone (a new output beside them) is checked so.
+zamba2-1.2b at full width on 2 x 1024 tokens; whisper-small's encoder
+and cross-attention calls (1,500 frames padded to 1,536, a key-length
+bound) and a prefill of it at full width. A change that is meant to
+leave these outputs alone (a new output beside them) is checked so. A
+case the other tree cannot compute (its wrapper lacks an argument it
+needs) is listed as new, not compared.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 import pathlib
 import subprocess
@@ -58,6 +63,14 @@ def cases() -> dict:
                         window=window).cpu()
     q, k, v = (randn(128, 1024, 64, dtype=torch.bfloat16) for _ in range(3))
     out["attn serving"] = fa.flash_attention(q, k, v).cpu()
+    if "kv_len" in inspect.signature(fa.flash_attention).parameters:
+        # whisper-small's shapes: 4 x 12 heads, 1,500 frames padded to
+        # 1,536, 256 decoder tokens
+        k, v = (randn(48, 1536, 64, dtype=torch.bfloat16) for _ in range(2))
+        for name, sq in (("encoder", 1536), ("cross", 256)):
+            q = randn(48, sq, 64, dtype=torch.bfloat16)
+            out[f"attn whisper {name}"] = fa.flash_attention(
+                q, k, v, causal=False, kv_len=1500).cpu()
     for chunk in (16, 64, 128, 512):
         args = ssd.live_inputs({"bh": 8, "seq": 1024, "p": 64, "n": 64,
                                 "seed": chunk}, "cuda")
@@ -80,6 +93,19 @@ def cases() -> dict:
                 out[f"zamba2 cache {part} {name}"] = t.cpu()
         out["zamba2 forward logits"] = tf.forward(
             cfg, model, {"tokens": tokens[:, :512]}).cpu()
+    cfg = get_config("whisper-small")
+    if cfg.family in tf.FAMILIES:
+        del model, cache
+        model = tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        audio = randn(2, cfg.n_audio_frames, cfg.d_model) * 0.1
+        with torch.inference_mode():
+            last, cache, _ = tf.prefill(cfg, model, {
+                "tokens": tokens[:, :256] % cfg.vocab,
+                "audio_embeds": audio}, 448)
+        out["whisper prefill logits"] = last.cpu()
+        for name, t in cache.items():
+            out[f"whisper cache {name}"] = t.cpu()
     return out
 
 
@@ -104,13 +130,14 @@ def main() -> int:
                                             "PYTHONPATH": str(tree / "src")})
             outputs.append(torch.load(dump))
     theirs, ours = outputs
-    differ = [k for k in ours if k not in theirs
-              or not torch.equal(ours[k], theirs[k])]
-    print(f"{len(ours) - len(differ)} of {len(ours)} outputs bit-identical "
-          f"to {other}")
+    new = [k for k in ours if k not in theirs]
+    differ = [k for k in ours if k in theirs
+              and not torch.equal(ours[k], theirs[k])]
+    print(f"{len(ours) - len(new) - len(differ)} of {len(ours) - len(new)} "
+          f"outputs bit-identical to {other}; {len(new)} new: {new}")
     for k in differ:
         print(f"  DIFFERS: {k}")
-    return 1 if differ else 0
+    return 1 if differ or len(new) == len(ours) else 0
 
 
 if __name__ == "__main__":

@@ -58,8 +58,8 @@ ABLATIONS = {
                         "q_rows + r / 2 * 2 * NG * P + dd)")],
     "k loads halved": [("ks + (c * kLanes + t) * P + dd)",
                         "ks + (c / 2 * 2 * kLanes + t) * P + dd)")],
-    "v loads halved": [("vs + j * P + c * 64 + 4 * pl)",
-                        "vs + j / 2 * 2 * P + c * 64 + 4 * pl)")],
+    "v loads halved": [("vs + j * P + col0 + c * 64 + 4 * pl)",
+                        "vs + j / 2 * 2 * P + col0 + c * 64 + 4 * pl)")],
     "p loads halved": [("p_pair + j * kRows)", "p_pair + j / 2 * 2 * kRows)"),
                        ("p_pair + PS + j * kRows)",
                         "p_pair + PS + j / 2 * 2 * kRows)")],
@@ -104,14 +104,15 @@ def launcher(lib: ctypes.CDLL, q, k, v, out, threads: int, sub_kv: int):
     block shape on the problem's tensors."""
     lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float]
         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream().cuda_stream
 
     def fn(block_q: int, block_kv: int) -> None:
         rc = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-            BH, S, D, BH // BH_KV, block_q, block_kv, 1, -1, 1.0 / D ** 0.5, 0, D,
+            BH, S, S, S, D, BH // BH_KV, block_q, block_kv, 1, -1,
+            1.0 / D ** 0.5, 0, D,
             threads, sub_kv, stream)
         if rc:
             raise RuntimeError(f"launch refused: cudaError {rc}")

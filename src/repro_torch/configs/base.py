@@ -8,7 +8,7 @@ no allocation).
 
 Port of ``src/repro/configs/base.py``, a copy. In the port the full
 configs are also served on the card (``repro_torch.launch.serve --preset
-full``), for the families the port's models cover.
+full``), every family of them.
 """
 from __future__ import annotations
 

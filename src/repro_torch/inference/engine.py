@@ -24,7 +24,10 @@ kernels on the card) and a decode step a token. What changed:
 
 As in the reference, prompts are left-aligned and padded with token 0 up
 to the longest (despite its comment), so the first token of a shorter
-request continues a pad position (ROADMAP Queue 3).
+request continues a pad position (ROADMAP Queue 3). The batch carries
+the reference's family inputs, made on the device: zero audio embeddings
+(B, n_audio_frames, d) for ``audio``; zero patch embeddings (B,
+n_patches, d) and M-RoPE positions (B, S, 3) for ``vlm``.
 """
 from __future__ import annotations
 
@@ -74,6 +77,22 @@ class _Clock:
         return (self.marks[j] - self.marks[i]) * 1e3
 
 
+def family_inputs(cfg: ArchConfig, b: int, plen: int, device) -> dict:
+    """The reference's stub inputs of ``cfg``'s family for a batch of
+    ``b`` prompts of ``plen`` tokens (``repro/inference/engine.py:51-58``);
+    empty for the text-only families."""
+    out = {}
+    if cfg.family == "audio":
+        out["audio_embeds"] = torch.zeros(
+            (b, cfg.n_audio_frames, cfg.d_model), device=device)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.zeros((b, cfg.n_patches, cfg.d_model),
+                                          device=device)
+        out["positions"] = torch.arange(plen, device=device)[
+            None, :, None].expand(b, plen, 3)
+    return out
+
+
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, params: Model, max_len: int = 512):
         self.cfg = cfg
@@ -106,8 +125,10 @@ class ServingEngine:
         with torch.inference_mode():
             toks = toks.to(self.device)
             clock.mark()
-            logits, cache, cache_len = prefill(cfg, self.params,
-                                               {"tokens": toks}, self.max_len)
+            batch = {"tokens": toks,
+                     **family_inputs(cfg, b, plen, self.device)}
+            logits, cache, cache_len = prefill(cfg, self.params, batch,
+                                               self.max_len)
             clock.mark()
             cache_len = torch.full((b,), cache_len, device=self.device)
             for _ in range(max_new):

@@ -1,7 +1,11 @@
 // Flash attention (forward) for Hopper (sm_90a): online-softmax attention
 // out[h, i] = sum_j softmax_j(q[h, i] . k[h/g, j] * scale) v[h/g, j] over the
 // causal and sliding-window masks, with grouped-query heads (g q heads share
-// one kv head), in float32 or bf16 with float32 arithmetic.
+// one kv head), in float32 or bf16 with float32 arithmetic. q has sq rows a
+// head and k, v skv (cross-attention: queries over another sequence's keys);
+// only the first kv_len keys are real, the rest a pad masked as the
+// reference's blockwise attention masks it (src/repro/models/attention.py:
+// 72-73). Causal and window masks need sq == skv.
 //
 // Replaces the Pallas TPU kernel `_attn_kernel` / `flash_attention` of
 // src/repro/kernels/flash_attention.py (the pl.pallas_call at line 104).
@@ -16,8 +20,10 @@
 // visited only when some (q, kv) pair of the block's q tile and that tile
 // is unmasked; the reference's grid visits all of them, but a skipped tile
 // only adds terms that the first real score multiplies by exactly 0, so
-// the output is the same. Inside a visited tile every sub-tile is computed,
-// masked or not, so block_kv still sets the masked work near the diagonal.
+// the output is the same. The walk ends at the sub-tile that holds key
+// kv_len - 1: tiles and sub-tiles of pad alone are never staged. Inside a
+// visited tile every other sub-tile is computed, masked or not, so block_kv
+// still sets the masked work near the diagonal.
 //
 // The update is the reference's, with its finite NEG_INF = -1e30 mask:
 //   m' = max(m, rowmax s), alpha = exp(m - m'), p = exp(s - m'),
@@ -71,7 +77,8 @@
 //     clamped to its last row and columns d .. D-1 are zero, so every
 //     sub-tile is a whole one and its columns past the tile score -inf.
 //   * Masks are computed only on sub-tiles that cross the causal diagonal,
-//     the window's edge or the tile's end; the others take no compare.
+//     the window's edge, the tile's end or kv_len; the others take no
+//     compare.
 //
 // The wrapper's `plan` (flash_attention.py) picks the instantiation: NT
 // threads (NT / 8 row groups, a q sub-tile of NT / 2 rows) with SKV (256
@@ -201,9 +208,9 @@ template <int kBf16, int D, int NT, int SKV>
 __global__ void __launch_bounds__(NT, 256 / NT)
 attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
             const void* __restrict__ v_in, void* __restrict__ out_in,
-            float* __restrict__ lse, int bh, int s, int d, int group,
-            int block_q, int block_kv, int causal, int window, float scale,
-            int vec) {
+            float* __restrict__ lse, int bh, int sq, int skv, int kv_len,
+            int d, int group, int block_q, int block_kv, int causal,
+            int window, float scale, int vec) {
   using T = std::conditional_t<kBf16 != 0, __nv_bfloat16, float>;
   constexpr int P = D + 4;            // staged row pitch, in floats
   constexpr int NG = NT / kLanes;     // row groups
@@ -230,29 +237,35 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
   const int pl = lane % (2 * kLanes);  // lane in its pair of groups
   const int pair_grp = grp - odd;     // the pair's first group
 
-  const int n_q = s / block_q;
+  const int n_q = sq / block_q;
   const int blk = static_cast<int>(blockIdx.x) / NH;
   const int qi = n_q - 1 - blk / bh;
   const int h = blk % bh;
   const int col0 = static_cast<int>(blockIdx.x) % NH * (D / NH);  // of v
-  const T* qh = q + static_cast<size_t>(h) * s * d;
-  const T* kh = k + static_cast<size_t>(h / group) * s * d;
-  const T* vh = v + static_cast<size_t>(h / group) * s * d;
-  T* oh = out + static_cast<size_t>(h) * s * d;
+  const T* qh = q + static_cast<size_t>(h) * sq * d;
+  const T* kh = k + static_cast<size_t>(h / group) * skv * d;
+  const T* vh = v + static_cast<size_t>(h / group) * skv * d;
+  T* oh = out + static_cast<size_t>(h) * sq * d;
 
-  // the kv tiles in which some pair of this q tile is unmasked
+  // the kv tiles in which some pair of this q tile is unmasked: none past
+  // the one that holds key kv_len - 1
   const int q_begin = qi * block_q;
   const int q_last = q_begin + block_q - 1;
-  const int n_kv = s / block_kv;
-  int kv_tile_end = n_kv;
-  if (causal) kv_tile_end = min(n_kv, q_last / block_kv + 1);
+  int kv_tile_end = (kv_len + block_kv - 1) / block_kv;
+  if (causal) kv_tile_end = min(kv_tile_end, q_last / block_kv + 1);
   int kv_tile_begin = 0;
   if (window > 0) {
     const int lo = q_begin - window + 1;  // visit iff (j + 1) block_kv > lo
     kv_tile_begin = lo > 0 ? lo / block_kv : 0;
   }
   const int subs = (block_kv + SKV - 1) / SKV;  // sub-tiles a kv tile
-  const int n_sub = (kv_tile_end - kv_tile_begin) * subs;
+  // the last visited tile's sub-tiles up to the one that holds key
+  // kv_len - 1 (all of them when kv_len covers the tile)
+  const int last_rows = min(block_kv, kv_len - (kv_tile_end - 1) * block_kv);
+  const int n_sub = kv_tile_end > kv_tile_begin
+                        ? (kv_tile_end - kv_tile_begin - 1) * subs +
+                              (last_rows + SKV - 1) / SKV
+                        : 0;
 
   // columns d .. D-1 of every staged row stay 0: no copy writes them
   if (d < D) {
@@ -272,7 +285,7 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
   auto stage_half = [&](int n) {
     if (n < 2 * n_sub)
       stage_rows<D, NT, SKV>(ring + n % kSlots * SKV * P, n % 2 ? vh : kh,
-                             kv_first(n / 2), s, d, vec);
+                             kv_first(n / 2), skv, d, vec);
     cp_async_commit();
   };
   auto advance = [&](int n) {
@@ -285,7 +298,7 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
   for (int qs0 = 0; qs0 < block_q; qs0 += SQ) {
     const int q0 = q_begin + qs0;
     __syncthreads();  // the last sub-tile's reads of qs and the ring are done
-    stage_rows<D, NT, SQ>(qs, qh, q0, s, d, vec);
+    stage_rows<D, NT, SQ>(qs, qh, q0, sq, d, vec);
     stage_half(0);
     stage_half(1);
 
@@ -338,9 +351,11 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
           }
       }
 
-      // a sub-tile with a masked pair or a column past the tile's end
+      // a sub-tile with a masked pair, a pad key or a column past the
+      // tile's end
       const bool edge = cols < SKV || (causal && kv0 + SKV - 1 > q0) ||
-                        (window > 0 && q0 + SQ - 1 - kv0 >= window);
+                        (window > 0 && q0 + SQ - 1 - kv0 >= window) ||
+                        kv0 + SKV > kv_len;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int q_pos = q0 + r * NG + grp;
@@ -352,7 +367,8 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
             const int col = c * kLanes + t;
             const int kv_pos = kv0 + col;
             if ((causal && q_pos < kv_pos) ||
-                (window > 0 && q_pos - kv_pos >= window))
+                (window > 0 && q_pos - kv_pos >= window) ||
+                kv_pos >= kv_len)
               x = kNegInf;
             if (col >= cols) x = -INFINITY;  // no score at all
           }
@@ -460,7 +476,7 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
       for (int r = 0; r < kRows; ++r) {
         const int row = r * NG + grp;
         if (qs0 + row < block_q)
-          lse[static_cast<size_t>(h) * s + q0 + row] =
+          lse[static_cast<size_t>(h) * sq + q0 + row] =
               m[r] + logf(fmaxf(l[r], 1e-30f));
       }
     }
@@ -469,8 +485,9 @@ attn_kernel(const void* __restrict__ q_in, const void* __restrict__ k_in,
 
 template <int kBf16, int D, int NT, int SKV>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse,
-           int bh, int s, int d, int group, int block_q, int block_kv,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int bh, int sq, int skv, int kv_len, int d, int group, int block_q,
+           int block_kv, int causal, int window, float scale,
+           cudaStream_t stream) {
   constexpr int kSmem = smem_floats(D, NT, SKV) * 4;
   static_assert(kSmem <= kMaxSmem, "an instantiation fits a block");
   static bool configured = false;
@@ -491,10 +508,10 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse,
   const int vec = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) &&
                   aligned(out);
   const unsigned grid =
-      static_cast<unsigned>(bh) * (s / block_q) * col_blocks(D);
+      static_cast<unsigned>(bh) * (sq / block_q) * col_blocks(D);
   attn_kernel<kBf16, D, NT, SKV><<<grid, NT, kSmem, stream>>>(
-      q, k, v, out, lse, bh, s, d, group, block_q, block_kv, causal, window,
-      scale, vec);
+      q, k, v, out, lse, bh, sq, skv, kv_len, d, group, block_q, block_kv,
+      causal, window, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -506,35 +523,39 @@ extern "C" {
 // (flash_attention.py): head dims staged up to `d_max`, `threads` threads
 // and k/v sub-tiles of `sub_kv` rows; the row groups, q sub-tile, pitch,
 // ring and shared memory follow from these. `bf16` selects __nv_bfloat16
-// operands. q is (bh, s, d), k and v (bh / group, s, d); window <= 0 means
-// no window. Returns cudaErrorInvalidValue, launching nothing, for a
+// operands. q is (bh, sq, d), k and v (bh / group, skv, d), of which keys
+// kv_len .. skv - 1 are a masked pad; window <= 0 means no window, and a
+// causal or window mask needs sq == skv. Returns cudaErrorInvalidValue, launching nothing, for a
 // problem outside this kernel's limits or a plan it was not built for,
 // else cudaGetLastError() after the launch (0 when it was accepted); does
 // not synchronise. Dtypes and contiguity are checked by the wrapper. With
 // a non-null `lse`, a (bh, s) float32 output, each query row's logsumexp
 // of its masked, scaled scores goes there too, m + log(max(l, 1e-30)) as
 // the reference's custom VJP saves it (src/repro/models/attention.py:91);
-// a null `lse` writes nothing more.
+// a null `lse` writes nothing more; it is (bh, sq).
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* out, void* lse, int bh, int s, int d,
-                          int group, int block_q, int block_kv, int causal,
-                          int window, float scale, int bf16, int d_max,
-                          int threads, int sub_kv, void* stream) {
-  if (bh < 1 || s < 1 || d < 1 || d > d_max || group < 1 || bh % group ||
-      block_q < 1 || block_kv < 1 || s % block_q || s % block_kv ||
-      static_cast<long long>(bh) * (s / block_q) * 2 > INT_MAX ||
+                          void* out, void* lse, int bh, int sq, int skv,
+                          int kv_len, int d, int group, int block_q,
+                          int block_kv, int causal, int window, float scale,
+                          int bf16, int d_max, int threads, int sub_kv,
+                          void* stream) {
+  if (bh < 1 || sq < 1 || skv < 1 || kv_len < 1 || kv_len > skv || d < 1 ||
+      d > d_max || group < 1 || bh % group || block_q < 1 || block_kv < 1 ||
+      sq % block_q || skv % block_kv ||
+      ((causal || window > 0) && sq != skv) ||
+      static_cast<long long>(bh) * (sq / block_q) * 2 > INT_MAX ||
       (bf16 != 0 && bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_out = static_cast<float*>(lse);
 #define REPRO_ATTN_CASE(D, NT, SKV)                                          \
   if (d_max == D && threads == NT && sub_kv == SKV)                          \
-    return bf16 ? launch<1, D, NT, SKV>(q, k, v, out, lse_out, bh, s, d,     \
-                                        group, block_q, block_kv, causal,    \
-                                        window, scale, st)                   \
-                : launch<0, D, NT, SKV>(q, k, v, out, lse_out, bh, s, d,     \
-                                        group, block_q, block_kv, causal,    \
-                                        window, scale, st);
+    return bf16 ? launch<1, D, NT, SKV>(q, k, v, out, lse_out, bh, sq, skv,  \
+                                        kv_len, d, group, block_q, block_kv, \
+                                        causal, window, scale, st)           \
+                : launch<0, D, NT, SKV>(q, k, v, out, lse_out, bh, sq, skv,  \
+                                        kv_len, d, group, block_q, block_kv, \
+                                        causal, window, scale, st);
   REPRO_ATTN_CASE(256, 128, 32)
   REPRO_ATTN_CASE(128, 256, 64) REPRO_ATTN_CASE(128, 128, 32)
   REPRO_ATTN_CASE(64, 256, 64) REPRO_ATTN_CASE(64, 128, 32)

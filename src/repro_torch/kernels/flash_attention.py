@@ -8,7 +8,7 @@ accumulator and softmax state in registers, operands read as float4 from
 shared memory, k/v sub-tiles staged by a ``cp.async`` ring, masks only on
 the sub-tiles that need them); ``flash_attention`` here is its wrapper and
 ``attention_plain`` the same function in plain PyTorch: the reference's
-``attention_ref``, S x S float32 logits per head with the finite
+``attention_ref``, Sq x Skv float32 logits per head with the finite
 ``NEG_INF`` mask, then a softmax. The search space, the problem sizes and
 the cost-model ``workload()`` are the reference's, unchanged, so config
 ids agree across the two packages.
@@ -26,6 +26,15 @@ logsumexp, which the kernel writes beside the output (a null pointer
 otherwise, so a call that does not ask pays nothing): the statistic the
 model's attention backward (``models/attention.py``) recomputes the
 probabilities from, as the reference's custom VJP does.
+
+What the reference's Pallas kernel does not take and the port's call
+site needs (``models/attention.py``, whose reference, ``blockwise_attention``,
+takes both): q and k/v of different lengths Sq and Skv (whisper's
+cross-attention, 256 decoder tokens over 1,500 encoder frames), and a
+key-length bound ``kv_len``: the keys from ``kv_len`` on are a pad,
+masked with ``NEG_INF`` as the reference masks its pad, and the kernel
+visits no tile and no sub-tile of pad alone. A causal or window mask
+needs Sq == Skv (the reference's models ask for no other).
 """
 from __future__ import annotations
 
@@ -126,18 +135,21 @@ class Plan:
 
 @functools.lru_cache(maxsize=None)
 def plan(block_q: int, block_kv: int, s: int, d: int,
-         dtype: torch.dtype = torch.float32) -> Plan | None:
-    """The launch plan of one tiling for a sequence of ``s`` tokens and
-    head dimension ``d``, or None where the kernel cannot run it (a tile
-    below 1 or not dividing ``s``, d outside 1..``MAX_D``, a dtype other
+         dtype: torch.dtype = torch.float32,
+         skv: int | None = None) -> Plan | None:
+    """The launch plan of one tiling for ``s`` query tokens over ``skv``
+    keys (default ``s``) and head dimension ``d``, or None where the
+    kernel cannot run it (a tile below 1, a q tile not dividing ``s`` or
+    a kv tile not dividing ``skv``, d outside 1..``MAX_D``, a dtype other
     than float32 and bf16). The rule: head dims staged to 64 when d <= 64,
     to 128 when d <= 128, else to 256; a q tile of at most 64 rows, or any
     q tile at d above 128, takes the ``NARROW`` block (64-row q and 32-row
     kv sub-tiles), a larger one the ``WIDE`` block (128-row q and 64-row kv
     sub-tiles)."""
+    skv = s if skv is None else skv
     if (dtype not in (torch.float32, torch.bfloat16) or not 1 <= d <= MAX_D
-            or block_q < 1 or block_kv < 1 or s < 1 or s % block_q
-            or s % block_kv):
+            or block_q < 1 or block_kv < 1 or s < 1 or skv < 1
+            or s % block_q or skv % block_kv):
         return None
     d_max = 64 if d <= 64 else 128 if d <= 128 else MAX_D
     return Plan(dtype == torch.bfloat16, d_max,
@@ -170,32 +182,33 @@ def _lib() -> ctypes.CDLL:
                                f"disagree with the wrapper's {want}")
         lib.repro_flash_attention.restype = ctypes.c_int
         lib.repro_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float]
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     return lib
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, kv_len: int | None = None):
     """The same function in plain PyTorch (the reference's
-    ``attention_ref``): float32 logits over the whole S x S square per
-    head, masked with the finite ``NEG_INF``, a softmax, then the product
-    with v; the result in q's dtype. With ``return_lse`` it returns
-    ``(out, lse)``, lse the (BH, S) float32 logsumexp of the masked
-    logits."""
-    bh, s, d = q.shape
+    ``attention_ref``): float32 logits over the whole Sq x Skv rectangle
+    per head, masked with the finite ``NEG_INF`` (also every key from
+    ``kv_len`` on), a softmax, then the product with v; the result in q's
+    dtype. With ``return_lse`` it returns ``(out, lse)``, lse the (BH, Sq)
+    float32 logsumexp of the masked logits."""
+    bh, sq, d = q.shape
+    skv = k.shape[1]
     group = bh // k.shape[0]
     kf = torch.repeat_interleave(k, group, dim=0).float()
     vf = torch.repeat_interleave(v, group, dim=0).float()
     logits = torch.einsum("hqd,hkd->hqk", q.float(), kf) / (d ** 0.5)
-    q_pos = torch.arange(s, device=q.device)[:, None]
-    kv_pos = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    kv_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = kv_pos < (skv if kv_len is None else kv_len)
     if causal:
-        mask &= q_pos >= kv_pos
+        mask = mask & (q_pos >= kv_pos)
     if window is not None:
-        mask &= (q_pos - kv_pos) < window
+        mask = mask & ((q_pos - kv_pos) < window)
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("hqk,hkd->hqd", p, vf).to(q.dtype)
@@ -205,36 +218,45 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_q: int = 128, block_kv: int = 128,
                     causal: bool = True, window: int | None = None,
-                    return_lse: bool = False):
-    """q: (BH, S, D); k/v: (BH_kv, S, D) with BH % BH_kv == 0 (GQA: q head
-    h reads kv head h // (BH / BH_kv)), float32 or bf16, the reference's
-    layout. The CUDA kernel for tensors on the card, launched as ``plan``
-    says, and ``attention_plain`` for tensors on the CPU. With
-    ``return_lse`` it returns ``(out, lse)``, lse the (BH, S) float32
-    logsumexp of each q row's masked, scaled scores. Raises
-    ``ConfigRejected`` for a problem ``plan`` refuses, on either device; a
-    plan the C side refuses raises ``RuntimeError`` without a launch."""
+                    return_lse: bool = False, kv_len: int | None = None):
+    """q: (BH, Sq, D); k/v: (BH_kv, Skv, D) with BH % BH_kv == 0 (GQA: q
+    head h reads kv head h // (BH / BH_kv)), float32 or bf16, the
+    reference's layout. Keys from ``kv_len`` (1 <= kv_len <= Skv, default
+    Skv) on are masked as a pad; a causal or window mask needs Sq == Skv.
+    The CUDA kernel for tensors on the card, launched as ``plan`` says, and
+    ``attention_plain`` for tensors on the CPU. With ``return_lse`` it
+    returns ``(out, lse)``, lse the (BH, Sq) float32 logsumexp of each q
+    row's masked, scaled scores. Raises ``ConfigRejected`` for a problem
+    ``plan`` refuses, on either device; a plan the C side refuses raises
+    ``RuntimeError`` without a launch."""
     global launches
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
-            or k.shape[1:] != q.shape[1:]:
-        raise ValueError(f"flash_attention takes q (BH, S, D) and k, v "
-                         f"(BH_kv, S, D), got {tuple(q.shape)}, "
+            or k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash_attention takes q (BH, Sq, D) and k, v "
+                         f"(BH_kv, Skv, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention takes float32 or bf16 tensors of "
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    bh, s, d = q.shape
-    bh_kv = k.shape[0]
+    bh, sq, d = q.shape
+    bh_kv, skv = k.shape[:2]
+    kv_len = skv if kv_len is None else kv_len
     if block_q < 1 or block_kv < 1:
         raise ValueError(f"tiles must be positive, got {block_q}x{block_kv}")
     # the reference's asserts (flash_attention.py:95-97), kept under -O
-    if bh % bh_kv or s % block_q or s % block_kv:
-        raise AssertionError(f"{bh} q heads over {bh_kv} kv heads, {s} "
-                             f"tokens in tiles of {block_q}x{block_kv}")
+    if bh % bh_kv or sq % block_q or skv % block_kv:
+        raise AssertionError(f"{bh} q heads over {bh_kv} kv heads, {sq} "
+                             f"queries and {skv} keys in tiles of "
+                             f"{block_q}x{block_kv}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    pl = plan(block_q, block_kv, s, d, q.dtype)
+    if not 1 <= kv_len <= skv:
+        raise ValueError(f"kv_len must lie in 1..{skv}, got {kv_len}")
+    if (causal or window is not None) and sq != skv:
+        raise ValueError(f"a causal or window mask needs as many queries as "
+                         f"keys, got {sq} and {skv}")
+    pl = plan(block_q, block_kv, sq, d, q.dtype, skv)
     if pl is None:
         raise ConfigRejected(f"tiling ({block_q},{block_kv}) with d={d} does "
                              f"not fit csrc/flash_attention.cu")
@@ -242,7 +264,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention operands lie on different devices")
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
-                               return_lse=return_lse)
+                               return_lse=return_lse, kv_len=kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
                          f"{q.device}")
@@ -250,12 +272,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention takes contiguous tensors")
     lib = _lib()
     out = torch.empty_like(q)
-    lse = (torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     rc = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), bh, s, d, bh // bh_kv,
-        block_q, block_kv, int(causal), -1 if window is None else window,
+        None if lse is None else lse.data_ptr(), bh, sq, skv, kv_len, d,
+        bh // bh_kv, block_q, block_kv, int(causal),
+        -1 if window is None else window,
         1.0 / (d ** 0.5), int(pl.bf16), pl.d_max, pl.threads, pl.sub_kv,
         cuda.stream_handle(q.device))
     cuda.check_launch(lib, rc, "flash_attention")

@@ -5,16 +5,20 @@ Port of ``src/repro/models/attention.py``. The reference's
 ``blockwise_attention`` is FlashAttention in plain JAX (a ``lax.scan``
 over kv blocks, ``:87``, under a custom VJP); here it is the call site
 of the port's hand-written kernel, ``kernels.flash_attention``: the
-reference layout (B, S, H, D) goes to the kernel's (B·H, S, D), and k/v
-to (B·Hkv, S, D), so query row ``b·H + h`` reads kv row ``(b·H + h) //
-group = b·Hkv + h // group``, the kernel's GQA rule. The sequence is
-padded up to a multiple of the tile and the result sliced back: under
-the causal mask a padded key lies after every real query, so it is never
-read. Tiling: ``TILE`` x ``TILE``, or ``SHORT_TILE`` when S is shorter
-(a fixed default; serving a tuned tiling from a recording is later
-work). A tiling the kernel refuses raises ``ConfigRejected``; nothing
-falls back to the plain version, which runs only for tensors on the CPU
-(the wrapper's own dispatch).
+reference layout (B, Sq, H, D) goes to the kernel's (B·H, Sq, D), and
+k/v (B, Skv, Hkv, D) to (B·Hkv, Skv, D), so query row ``b·H + h`` reads
+kv row ``(b·H + h) // group = b·Hkv + h // group``, the kernel's GQA
+rule. Skv may differ from Sq (cross-attention to an encoder's output)
+when no causal or window mask is asked for. Queries are padded up to a
+multiple of their tile and keys to a multiple of theirs, the result
+sliced back to Sq, and the kernel is told the real key count
+(``kv_len`` = Skv), so it masks the pad keys as the reference's scan
+masks its pad (``:72-73``): a padded call is exact with or without a
+causal mask. Tiling: ``TILE``, or ``SHORT_TILE`` for a length shorter
+than it, for queries and keys apart (a fixed default; serving a tuned
+tiling from a recording is later work). A tiling the kernel refuses
+raises ``ConfigRejected``; nothing falls back to the plain version,
+which runs only for tensors on the CPU (the wrapper's own dispatch).
 
 Training: the reference's custom VJP (``_flash`` / ``_flash_fwd`` /
 ``_flash_bwd``, ``:96-161``) is the ``torch.autograd.Function``
@@ -24,11 +28,14 @@ logsumexp, and saves (q, k, v, out, lse), linear in S; its backward is
 no Pallas backward): delta = sum(dout * out), then for each block of
 ``BWD_BLOCK_KV`` keys the probabilities p = exp(s - lse) recomputed
 under the same mask, dv, dp, ds = p (dp - delta) scale, dq and dk, in
-float32, dk and dv summed over each GQA group. It visits only the q rows
+float32, dk and dv summed over each GQA group. Its key blocks end at
+``kv_len``: the pad keys' p is 0, so their dk and dv stay 0 and the
+gradient of the pad is cut off by ``F.pad``'s. It visits only the q rows
 that see some key of the block (from the block's first key on under the
-causal mask, up to its last key plus the window under a window): the
-rows it skips have p = 0 exactly. A call whose inputs need no gradient
-(serving) goes straight to the kernel and asks for no lse.
+causal mask, up to its last key plus the window under a window, all of
+Sq otherwise): the rows it skips have p = 0 exactly. A call whose
+inputs need no gradient (serving) goes straight to the kernel and asks
+for no lse.
 
 What changed: the reference's per-layer ``is_global`` flag becomes the
 caller's choice of ``window`` (None on a global layer, the config's
@@ -63,27 +70,30 @@ def _mask_for(q_pos, kv_pos, *, causal: bool, window):
     return m
 
 
-def _flash_bwd(q, k, v, out, lse, dout, *, causal: bool, window) -> tuple:
+def _flash_bwd(q, k, v, out, lse, dout, *, causal: bool, window,
+               kv_len: int | None = None) -> tuple:
     """The reference's ``_flash_bwd`` on the kernel's layout: q, out, dout
-    (BH, S, D), k/v (BH_kv, S, D), lse (BH, S) float32. Returns (dq, dk,
-    dv) in the inputs' dtypes."""
-    bh, s, d = q.shape
-    bh_kv = k.shape[0]
+    (BH, Sq, D), k/v (BH_kv, Skv, D) of which the first ``kv_len``
+    (default Skv) are real, lse (BH, Sq) float32. Returns (dq, dk, dv) in
+    the inputs' dtypes, dk and dv 0 on the pad keys."""
+    bh, sq, d = q.shape
+    bh_kv, skv = k.shape[:2]
+    kv_len = skv if kv_len is None else kv_len
     g = bh // bh_kv
     scale = d ** -0.5
-    qg = q.float().reshape(bh_kv, g, s, d)
-    dog = dout.float().reshape(bh_kv, g, s, d)
+    qg = q.float().reshape(bh_kv, g, sq, d)
+    dog = dout.float().reshape(bh_kv, g, sq, d)
     # D_i = sum_d dout * out (the flash backward trick)
-    delta = (dog * out.float().reshape(bh_kv, g, s, d)).sum(-1)
-    lse = lse.reshape(bh_kv, g, s)
-    pos = torch.arange(s, device=q.device)
+    delta = (dog * out.float().reshape(bh_kv, g, sq, d)).sum(-1)
+    lse = lse.reshape(bh_kv, g, sq)
+    pos = torch.arange(max(sq, skv), device=q.device)
     dq = torch.zeros_like(qg)
-    dk = torch.zeros((bh_kv, s, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((bh_kv, skv, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
-    for k0 in range(0, s, BWD_BLOCK_KV):
-        k1 = min(k0 + BWD_BLOCK_KV, s)
+    for k0 in range(0, kv_len, BWD_BLOCK_KV):   # no block of pad alone
+        k1 = min(k0 + BWD_BLOCK_KV, kv_len)    # the real keys kv_pos < kv_len
         q0 = k0 if causal else 0            # rows that see a key of the block
-        q1 = s if window is None else min(s, k1 - 1 + window)
+        q1 = sq if window is None else min(sq, k1 - 1 + window)
         if q0 >= q1:
             continue
         kb, vb = k[:, None, k0:k1].float(), v[:, None, k0:k1].float()
@@ -98,7 +108,7 @@ def _flash_bwd(q, k, v, out, lse, dout, *, causal: bool, window) -> tuple:
         ds = p * (dp - delta[:, :, q0:q1, None]) * scale
         dq[:, :, q0:q1] += ds @ kb
         dk[:, k0:k1] = torch.einsum("hgqk,hgqd->hkd", ds, qs)
-    return (dq.reshape(bh, s, d).to(q.dtype), dk.to(k.dtype),
+    return (dq.reshape(bh, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
 
@@ -107,48 +117,56 @@ class _Flash(torch.autograd.Function):
     its lse), ``_flash_bwd``'s backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, tile: int, causal: bool, window):
-        out, lse = fa.flash_attention(q, k, v, block_q=tile, block_kv=tile,
-                                      causal=causal, window=window,
-                                      return_lse=True)
+    def forward(ctx, q, k, v, block_q: int, block_kv: int, causal: bool,
+                window, kv_len: int):
+        out, lse = fa.flash_attention(q, k, v, block_q=block_q,
+                                      block_kv=block_kv, causal=causal,
+                                      window=window, return_lse=True,
+                                      kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.kv_len = causal, window, kv_len
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         return (*_flash_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
-                            window=ctx.window), None, None, None)
+                            window=ctx.window, kv_len=ctx.kv_len),
+                None, None, None, None, None)
+
+
+def _tile(s: int) -> int:
+    return TILE if s >= TILE else SHORT_TILE
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int | None = None) -> torch.Tensor:
-    """q: (B, S, H, D); k/v: (B, S, Hkv, D). Returns (B, S, H, D), one
-    ``flash_attention`` call; through ``_Flash`` (differentiable) when an
-    input needs a gradient."""
-    b, s, h, d = q.shape
-    hkv = k.shape[2]
-    tile = TILE if s >= TILE else SHORT_TILE
-    pad = (-s) % tile
-    if pad and not causal:
-        raise ValueError("padding the sequence of a non-causal attention "
-                         "would let every query read the pad keys")
+    """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), Skv == Sq under a causal
+    or window mask. Returns (B, Sq, H, D), one ``flash_attention`` call;
+    through ``_Flash`` (differentiable) when an input needs a gradient."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1:3]
+    if (causal or window is not None) and sq != skv:
+        raise ValueError(f"a causal or window mask needs as many queries as "
+                         f"keys, got {sq} and {skv}")
+    tile_q, tile_kv = _tile(sq), _tile(skv)
 
-    def heads_first(t: torch.Tensor, n: int) -> torch.Tensor:
+    def heads_first(t: torch.Tensor, n: int, tile: int) -> torch.Tensor:
+        s = t.shape[1]
         t = t.permute(0, 2, 1, 3)
-        if pad:
-            t = F.pad(t, (0, 0, 0, pad))
-        return t.reshape(b * n, s + pad, d).contiguous()
+        if s % tile:
+            t = F.pad(t, (0, 0, 0, (-s) % tile))
+        return t.reshape(b * n, t.shape[2], d).contiguous()
 
-    args = (heads_first(q, h), heads_first(k, hkv), heads_first(v, hkv))
+    args = (heads_first(q, h, tile_q), heads_first(k, hkv, tile_kv),
+            heads_first(v, hkv, tile_kv))
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        out = _Flash.apply(*args, tile, causal, window)
+        out = _Flash.apply(*args, tile_q, tile_kv, causal, window, skv)
     else:
-        out = fa.flash_attention(*args, block_q=tile, block_kv=tile,
-                                 causal=causal, window=window)
-    return out.reshape(b, h, s + pad, d)[:, :, :s].permute(0, 2, 1, 3)
+        out = fa.flash_attention(*args, block_q=tile_q, block_kv=tile_kv,
+                                 causal=causal, window=window, kv_len=skv)
+    return out.reshape(b, h, -1, d)[:, :, :sq].permute(0, 2, 1, 3)
 
 
 def attention_reference(q, k, v, *, causal=True,

@@ -1,12 +1,25 @@
-"""Dense MLP layer.
+"""Dense MLP and Mixture-of-Experts layers.
 
 Port of ``src/repro/models/mlp.py``: ``make_mlp`` / ``apply_mlp`` become
-the ``MLP`` module, with the reference's parameter names (``wi``, ``wg``,
-``wo``), shapes (d_in, d_out) and arithmetic: products in the compute
-dtype, left to ``torch.matmul`` as the reference leaves them to XLA. Its
+the ``MLP`` module and ``make_moe`` / ``apply_moe`` the ``MoE`` module,
+with the reference's parameter names (``wi``, ``wg``, ``wo``; the MoE's
+``router`` (d, E), ``wi`` / ``wg`` (E, d, ff), ``wo`` (E, ff, d)), shapes
+and arithmetic: products in the compute dtype, left to ``torch.matmul``
+and ``torch.einsum`` as the reference leaves them to XLA. Its
 ``annotate`` sharding hints are no-ops without a mesh and are left out.
-``make_moe`` / ``apply_moe`` wait for the ``moe`` family (ROADMAP Queue
-1).
+
+MoE is the reference's per-row capacity dispatch, step for step (no
+kernel of the reference's computes it, so none of the port's does): the
+router's logits in float32, softmax, the top k renormalised; each
+(token, choice)'s position within its expert from a stable sort of the
+row's S·K expert ids; choices at or past the expert's capacity
+(``capacity_factor`` × S·K / E, rounded up) dropped; K scatter-adds into
+a (B, E, capacity, D) buffer, the three expert products, K gathers
+weighted by the renormalised probability. What changed: ``jax.lax.top_k``
+puts the lower expert first among equal probabilities, which
+``torch.topk`` does not promise, so the top k come from a stable
+descending sort (with bf16 router logits, ties among 128 experts are
+common, and one broken the other way changes which tokens are dropped).
 """
 from __future__ import annotations
 
@@ -32,3 +45,75 @@ class MLP(nn.Module):
         up = x @ self.wi.to(dt)
         gate = x @ self.wg.to(dt) if self.wg is not None else None
         return activation(self.cfg, gate, up) @ self.wo.to(dt)
+
+
+class MoE(nn.Module):
+    """``make_moe`` + ``apply_moe``: aux-loss-free top-k routing with
+    per-row capacity."""
+
+    def __init__(self, cfg: ArchConfig, gen=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, e, ff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+
+        def normal(*shape, scale):
+            return param(torch.randn(shape, generator=gen, device=device)
+                         * scale)
+
+        self.router = param(dense_init(gen, d, e, scale=0.02, device=device))
+        self.wi = normal(e, d, ff, scale=d ** -0.5)
+        self.wo = normal(e, ff, d, scale=ff ** -0.5)
+        self.wg = (normal(e, d, ff, scale=d ** -0.5)
+                   if cfg.act in ("swiglu", "geglu") else None)
+
+    def route(self, x: torch.Tensor) -> tuple:
+        """(top_p (B, S, K) float32 renormalised, top_e (B, S, K), pos
+        (B, S, K) each choice's slot in its expert, keep (B, S, K): the
+        slot lies below the capacity ``cap``), and ``cap``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        e, k = cfg.n_experts, cfg.top_k
+        cap = int(-(-s * k * cfg.capacity_factor // e))
+        logits = (x @ self.router.to(x.dtype)).float()           # (B,S,E)
+        probs = torch.softmax(logits, dim=-1)
+        # the lower expert first among equal probabilities, as lax.top_k
+        top_p, top_e = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+        top_p, top_e = top_p[..., :k], top_e[..., :k]
+        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+        # position within expert = index in the stable sort - the first
+        # index of that expert
+        flat_e = top_e.reshape(b, s * k)
+        order = torch.argsort(flat_e, dim=-1, stable=True)       # (B, SK)
+        sorted_e = torch.gather(flat_e, -1, order)
+        first = torch.searchsorted(sorted_e, sorted_e, side="left")
+        pos_sorted = torch.arange(s * k, device=x.device)[None] - first
+        pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
+        pos = pos.reshape(b, s, k)
+        return top_p, top_e, pos, pos < cap, cap
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, S, D) -> (B, S, D)."""
+        cfg = self.cfg
+        b, s, d = x.shape
+        dt = x.dtype
+        top_p, top_e, pos, keep, cap = self.route(x)
+        pos_c = torch.clamp_max(pos, cap - 1)
+        rows = torch.arange(b, device=x.device)[:, None]
+        buf = torch.zeros((b, cfg.n_experts, cap, d), dtype=dt,
+                          device=x.device)
+        for kk in range(cfg.top_k):  # dropped choices add 0 at slot cap - 1
+            contrib = torch.where(keep[:, :, kk, None], x, 0).to(dt)
+            buf = buf.index_put((rows, top_e[:, :, kk], pos_c[:, :, kk]),
+                                contrib, accumulate=True)
+        up = torch.einsum("becd,edf->becf", buf, self.wi.to(dt))
+        gate = (torch.einsum("becd,edf->becf", buf, self.wg.to(dt))
+                if self.wg is not None else None)
+        out = torch.einsum("becf,efd->becd", activation(cfg, gate, up),
+                           self.wo.to(dt))
+        y = torch.zeros((b, s, d), dtype=dt, device=x.device)
+        for kk in range(cfg.top_k):
+            gathered = out[rows, top_e[:, :, kk], pos_c[:, :, kk]]
+            w = (top_p[:, :, kk, None] * keep[:, :, kk, None]).to(dt)
+            y = y + gathered * w
+        return y

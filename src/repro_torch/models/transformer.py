@@ -1,12 +1,18 @@
-"""Model composition for the dense, ssm and hybrid families.
+"""Model composition for every family of the reference.
 
 Port of ``src/repro/models/transformer.py``. Families and their stacks:
 
-  dense   [attn + mlp] × L      (gemma3: a per-layer global flag switches
-                                 the mask's window off, not the code)
+  dense / vlm  [attn + mlp] × L  (gemma3: a per-layer global flag switches
+                                  the mask's window off, not the code;
+                                  qwen2-vl: patch embeddings replace the
+                                  first tokens' embeddings, M-RoPE
+                                  positions (B, S, 3) from the batch)
+  moe     [attn + moe] × L
   ssm     [mamba2] × L
   hybrid  ([mamba2] × k + shared attn block) × groups + tail
           (zamba2: one shared transformer block reused at every site)
+  audio   whisper enc-dec: encoder [bi-attn + mlp] × Le over stub audio
+          embeddings; decoder [self-attn + cross-attn + mlp] × Ld
 
 Entry points, with the reference's names and arguments:
   ``init_params``                      the ``Model`` (fp32 weights)
@@ -21,29 +27,36 @@ What changed:
     and layers run as a Python loop over them, not a ``lax.scan`` over
     stacked parameters. Caches keep the reference's stacked layout
     (``weights.from_reference`` maps the parameters).
-  * Full-sequence attention (training, prefill) goes through the
-    flash-attention kernel and every Mamba layer through the SSD kernels
-    (``attention.py``, ``mamba2.py``, each with the reference's backward
-    in PyTorch); decode is plain PyTorch, as in the reference.
+  * Full-sequence attention (training, prefill; the encoder's and the
+    cross-attention too, over the encoder's frames padded to the tile
+    and masked past their count) goes through the flash-attention kernel
+    and every Mamba layer through the SSD kernels (``attention.py``,
+    ``mamba2.py``, each with the reference's backward in PyTorch);
+    decode is plain PyTorch, as in the reference, the cross-attention
+    reading the whole static encoder cache. The MoE dispatch is plain
+    PyTorch too (``mlp.py``), as the reference computes it.
   * ``remat`` wraps each rematerialised layer body in
     ``torch.utils.checkpoint`` (non-reentrant): ``"full"`` recomputes the
     whole body in the backward, ``"dots"`` keeps the outputs of its
     products (``aten.mm`` / ``aten.addmm``, the counterpart of
     ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest. As in
-    the reference it covers dense and Mamba layers, never the hybrid's
-    shared block. A recompute launches the kernels again.
+    the reference it covers the decoder's layers (dense, moe, vlm,
+    audio) and Mamba layers, never the hybrid's shared block nor the
+    audio encoder. A recompute launches the kernels again.
   * ``decode_step`` writes the new token's k/v and Mamba states into the
     cache in place and returns it (copying a (B, max_len) cache every
     token would double decode's bytes); ``prefill`` computes the logits
-    of the last position only, the one it returns.
+    of the last position only, the one it returns, and projects only k
+    and v of the audio cross-attention's static cache (the reference
+    also computes a q it drops).
   * ``init_params`` takes a ``torch.Generator`` and a device (the card
     unless ``"cpu"`` is asked for); the weights are trainable
-    parameters. The ``moe``, ``audio`` and ``vlm`` families raise
-    ``NotImplementedError`` (ROADMAP Queue 1).
+    parameters.
 """
 from __future__ import annotations
 
 import functools
+import itertools
 
 import torch
 from torch import nn
@@ -56,10 +69,12 @@ from .attention import blockwise_attention, decode_attention
 from .layers import (COMPUTE_DTYPE, Norm, apply_rope, dense_init,
                      embed_init, param, rope_angles, softcap)
 from .mamba2 import Mamba, init_mamba_cache
-from .mlp import MLP
+from .mlp import MLP, MoE
 
 CACHE_DTYPE = torch.bfloat16
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# families whose layers are attention blocks with a kv cache each
+ATTENTION_STACKS = ("dense", "moe", "vlm", "audio")
 
 
 # ----------------------------------------------------------------- attention
@@ -77,71 +92,120 @@ class Attention(nn.Module):
         self.wo = param(dense_init(gen, h * dh, d, scale=(h * dh) ** -0.5,
                                    device=device))
 
-    def _project_qkv(self, x: torch.Tensor) -> tuple:
-        cfg = self.cfg
+    def _project_q(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        dt = x.dtype
-        q = (x @ self.wq.to(dt)).reshape(b, s, cfg.n_heads, cfg.d_head)
-        k = (x @ self.wk.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-        v = (x @ self.wv.to(dt)).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-        return q, k, v
+        return (x @ self.wq.to(x.dtype)).reshape(b, s, self.cfg.n_heads,
+                                                  self.cfg.d_head)
 
-    def forward(self, x, positions, *, window=None) -> tuple:
-        """Full-sequence causal attention. x: (B,S,D); positions: (B,S).
-        Returns (out, (k, v)), k after RoPE."""
-        q, k, v = self._project_qkv(x)
-        ang = rope_angles(self.cfg, positions)
-        q = apply_rope(q, ang)
-        k = apply_rope(k, ang)
-        out = blockwise_attention(q, k, v, causal=True, window=window)
+    def project_kv(self, src: torch.Tensor) -> tuple:
+        """k and v of ``src`` (B, Skv, D), each (B, Skv, Hkv, Dh), without
+        RoPE: the audio cross-attention's static cache."""
+        cfg = self.cfg
+        b, skv, _ = src.shape
+        dt = src.dtype
+        return tuple((src @ w.to(dt)).reshape(b, skv, cfg.n_kv_heads,
+                                              cfg.d_head)
+                     for w in (self.wk, self.wv))
+
+    def forward(self, x, positions, *, causal=True, window=None, rope=True,
+                kv_src=None) -> tuple:
+        """Full-sequence attention. x: (B,S,D); positions: (B,S[,3]); k
+        and v from ``kv_src`` (B,Skv,D) where given (cross-attention,
+        which takes no RoPE). Returns (out, (k, v)), k after RoPE."""
+        if rope and kv_src is not None:
+            raise ValueError("cross-attention (kv_src) takes no RoPE")
+        q = self._project_q(x)
+        k, v = self.project_kv(x if kv_src is None else kv_src)
+        if rope:
+            ang = rope_angles(self.cfg, positions)
+            q = apply_rope(q, ang)
+            k = apply_rope(k, ang)
+        out = blockwise_attention(q, k, v, causal=causal, window=window)
         b, s, _, _ = q.shape
         return out.reshape(b, s, -1) @ self.wo.to(x.dtype), (k, v)
 
-    def decode(self, x, cache_k, cache_v, idx, *, window=None):
-        """Single step. x: (B,1,D); caches (B,Smax,Hkv,Dh), into which the
-        current token's k/v are written at the positions ``idx`` (B,), on
-        x's device, in place."""
-        q, k, v = self._project_qkv(x)
+    def decode(self, x, cache_k, cache_v, idx, *, window=None, rope=True,
+               cross=False):
+        """Single step. x: (B,1,D); caches (B,Smax,Hkv,Dh). Self-attention
+        writes the current token's k/v into them at the positions ``idx``
+        (B,), on x's device, in place; cross-attention (``cross``) reads
+        the whole static encoder cache."""
+        cfg = self.cfg
         b = x.shape[0]
-        ang = rope_angles(self.cfg, idx[:, None])
-        q = apply_rope(q, ang)
-        k = apply_rope(k, ang)
-        rows = torch.arange(b, device=x.device)
-        cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
-        cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
+        q = self._project_q(x)
+        k, v = (None, None) if cross else self.project_kv(x)
+        if rope:
+            pos = idx[:, None]
+            if cfg.m_rope:
+                pos = pos[..., None].expand(b, 1, 3)
+            ang = rope_angles(cfg, pos)
+            q = apply_rope(q, ang)
+            if not cross:
+                k = apply_rope(k, ang)
+        if cross:
+            total_len = cache_k.shape[1]  # the whole encoder output
+        else:
+            rows = torch.arange(b, device=x.device)
+            cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
+            cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
+            total_len = idx + 1
         out = decode_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                               idx + 1, window=window)
+                               total_len, window=window)
         return out.reshape(b, 1, -1) @ self.wo.to(x.dtype)
 
 
 # -------------------------------------------------------------- layer bodies
 class Block(nn.Module):
-    """A dense block: attention, then the MLP, each behind its norm."""
+    """An attention block: attention, then the MLP (kind ``dense``, also
+    the audio encoder's ``bidi`` blocks, run unmasked) or the ``MoE``
+    (kind ``moe``), each behind its norm; kind ``encdec`` (the audio
+    decoder) adds cross-attention to the encoder's output behind
+    ``norm_x``, between the two."""
 
-    def __init__(self, cfg: ArchConfig, gen=None, device=None):
+    def __init__(self, cfg: ArchConfig, gen=None, device=None,
+                 kind: str = "dense"):
         super().__init__()
         self.norm1 = Norm(cfg, cfg.d_model, device)
         self.attn = Attention(cfg, gen, device)
         self.norm2 = Norm(cfg, cfg.d_model, device)
-        self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, gen, device)
+        self.moe = MoE(cfg, gen, device) if kind == "moe" else None
+        self.mlp = (None if kind == "moe"
+                    else MLP(cfg, cfg.d_model, cfg.d_ff, gen, device))
+        cross = kind == "encdec"
+        self.norm_x = Norm(cfg, cfg.d_model, device) if cross else None
+        self.xattn = Attention(cfg, gen, device) if cross else None
 
-    def _body(self, x, positions, window) -> tuple:
-        h, kv = self.attn(self.norm1(x), positions, window=window)
+    def _ffn(self, x):
+        z = self.norm2(x)
+        return x + (self.mlp(z) if self.moe is None else self.moe(z))
+
+    def _body(self, x, positions, window, causal, enc_out) -> tuple:
+        h, kv = self.attn(self.norm1(x), positions, causal=causal,
+                          window=window)
         x = x + h
-        return x + self.mlp(self.norm2(x)), kv
+        if self.xattn is not None:
+            h, _ = self.xattn(self.norm_x(x), positions, causal=False,
+                              rope=False, kv_src=enc_out)
+            x = x + h
+        return self._ffn(x), kv
 
-    def prefill(self, x, positions, *, window=None) -> tuple:
+    def prefill(self, x, positions, *, window=None, enc_out=None) -> tuple:
         """(x, (k, v)) with k/v in the cache dtype."""
-        x, (k, v) = self._body(x, positions, window)
+        x, (k, v) = self._body(x, positions, window, True, enc_out)
         return x, (k.to(CACHE_DTYPE), v.to(CACHE_DTYPE))
 
-    def forward(self, x, positions, *, window=None):
-        return self._body(x, positions, window)[0]
+    def forward(self, x, positions, *, window=None, causal=True,
+                enc_out=None):
+        return self._body(x, positions, window, causal, enc_out)[0]
 
-    def decode(self, x, cache_k, cache_v, idx, *, window=None):
+    def decode(self, x, cache_k, cache_v, idx, *, window=None, cross=None):
+        """``cross``: this layer's static (xk, xv) encoder cache."""
         x = x + self.attn.decode(self.norm1(x), cache_k, cache_v, idx,
                                  window=window)
-        return x + self.mlp(self.norm2(x))
+        if self.xattn is not None:
+            x = x + self.xattn.decode(self.norm_x(x), *cross, idx,
+                                      rope=False, cross=True)
+        return self._ffn(x)
 
 
 class MambaBlock(nn.Module):
@@ -167,23 +231,32 @@ class MambaBlock(nn.Module):
 class Model(nn.Module):
     """The parameters of one config, named as the reference's pytree:
     ``embed``, ``final_norm``, ``unembed`` (untied only), and ``layers``
-    (dense, ssm) or ``mamba_groups`` ([n_groups][every]), ``mamba_tail``
+    (dense, vlm, moe, ssm; audio: the decoder, after ``encoder`` and
+    ``enc_norm``) or ``mamba_groups`` ([n_groups][every]), ``mamba_tail``
     and ``shared`` (hybrid)."""
 
     def __init__(self, cfg: ArchConfig, gen=None, device=None):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves the {', '.join(FAMILIES)} "
-                f"families; {cfg.family!r} waits in ROADMAP Queue 1")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
         self.embed = param(embed_init(gen, cfg.vocab, cfg.d_model, device))
         self.final_norm = Norm(cfg, cfg.d_model, device)
         self.unembed = (None if cfg.tie_embeddings else param(
             dense_init(gen, cfg.d_model, cfg.vocab, device=device)))
-        if cfg.family == "dense":
-            self.layers = nn.ModuleList(Block(cfg, gen, device)
-                                        for _ in range(cfg.n_layers))
+
+        def stack(n, kind):
+            return nn.ModuleList(Block(cfg, gen, device, kind)
+                                 for _ in range(n))
+
+        if cfg.family in ("dense", "vlm"):
+            self.layers = stack(cfg.n_layers, "dense")
+        elif cfg.family == "moe":
+            self.layers = stack(cfg.n_layers, "moe")
+        elif cfg.family == "audio":
+            self.encoder = stack(cfg.n_encoder_layers, "dense")  # bidi
+            self.enc_norm = Norm(cfg, cfg.d_model, device)
+            self.layers = stack(cfg.n_layers, "encdec")
         elif cfg.family == "ssm":
             self.layers = nn.ModuleList(MambaBlock(cfg, gen, device)
                                         for _ in range(cfg.n_layers))
@@ -238,9 +311,40 @@ def _windows(cfg: ArchConfig) -> list:
     return [None if g else cfg.window for g in flags]
 
 
-def _positions(cfg: ArchConfig, tokens) -> torch.Tensor:
+def _positions(cfg: ArchConfig, batch: dict, tokens) -> torch.Tensor:
+    """(B, S), or (B, S, 3) under M-RoPE: the batch's own, else 0..S-1
+    (in each of the three components)."""
+    if cfg.m_rope and "positions" in batch:
+        return batch["positions"]
     b, s = tokens.shape
-    return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    return pos[..., None].expand(b, s, 3) if cfg.m_rope else pos
+
+
+def _encoder_forward(cfg: ArchConfig, params: Model,
+                     audio_embeds) -> torch.Tensor:
+    """The audio encoder: its blocks unmasked over the frames, then
+    ``enc_norm``."""
+    x = audio_embeds.to(COMPUTE_DTYPE)
+    b, t, _ = x.shape
+    pos = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    for blk in params.encoder:
+        x = blk(x, pos, causal=False, window=cfg.window)
+    return params.enc_norm(x)
+
+
+def _inputs(cfg: ArchConfig, params: Model, batch: dict) -> tuple:
+    """(x, positions, enc_out) of a batch: the embedded tokens (vlm: the
+    first ``n_patches`` replaced by the batch's patch embeddings), their
+    positions, and the audio encoder's output (else None)."""
+    tokens = batch["tokens"]
+    x = _embed(cfg, params, tokens)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        patches = batch["patch_embeds"]
+        x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
+    enc_out = (_encoder_forward(cfg, params, batch["audio_embeds"])
+               if cfg.family == "audio" else None)
+    return x, _positions(cfg, batch, tokens), enc_out
 
 
 # ------------------------------------------------------------------ forward
@@ -263,11 +367,12 @@ def _maybe_remat(fn, remat: str):
 
 
 def _layers(cfg: ArchConfig, params: Model, x, positions, collect: bool,
-            remat: str = "none"):
-    """Run the stack; with ``collect`` also return the caches' parts in
-    layer order: k/v of each attention site, (conv, ssm) of each Mamba
-    layer. ``remat`` applies to dense and Mamba layers, not to the
-    hybrid's shared block."""
+            remat: str = "none", enc_out=None):
+    """Run the stack (audio: the decoder's, attending to ``enc_out``);
+    with ``collect`` also return the caches' parts in layer order: k/v of
+    each attention site, (conv, ssm) of each Mamba layer. ``remat``
+    applies to attention-stack and Mamba layers, not to the hybrid's
+    shared block."""
     kvs, mcs = [], []
 
     def mamba(blk, x):
@@ -280,12 +385,13 @@ def _layers(cfg: ArchConfig, params: Model, x, positions, collect: bool,
     def attend(blk, x, window, remat=remat):
         if not collect:
             return _maybe_remat(functools.partial(
-                blk, positions=positions, window=window), remat)(x)
-        x, kv = blk.prefill(x, positions, window=window)
+                blk, positions=positions, window=window, enc_out=enc_out),
+                remat)(x)
+        x, kv = blk.prefill(x, positions, window=window, enc_out=enc_out)
         kvs.append(kv)
         return x
 
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_STACKS:
         for blk, window in zip(params.layers, _windows(cfg)):
             x = attend(blk, x, window)
     elif cfg.family == "ssm":
@@ -307,9 +413,8 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *,
     full, per layer body. ``pre_logits``: return the final-norm hidden
     states instead of logits (the training loss computes chunked CE
     itself)."""
-    tokens = batch["tokens"]
-    x = _embed(cfg, params, tokens)
-    x, _, _ = _layers(cfg, params, x, _positions(cfg, tokens), False, remat)
+    x, positions, enc_out = _inputs(cfg, params, batch)
+    x, _, _ = _layers(cfg, params, x, positions, False, remat, enc_out)
     x = params.final_norm(x)
     return x if pre_logits else _unembed(cfg, params, x)
 
@@ -318,9 +423,10 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                device=None) -> dict:
     """Empty serving cache, in the reference's stacked layout: attention
-    k/v (sites, B, max_len, Hkv, Dh) bf16; Mamba conv (layers, B, K-1, C)
-    bf16 and ssm (layers, B, H, N, P) fp32 (hybrid: groups (n_groups,
-    every, ...), tail, shared)."""
+    k/v (sites, B, max_len, Hkv, Dh) bf16 (audio: also the static
+    cross-attention xk/xv (L, B, n_audio_frames, Hkv, Dh)); Mamba conv
+    (layers, B, K-1, C) bf16 and ssm (layers, B, H, N, P) fp32 (hybrid:
+    groups (n_groups, every, ...), tail, shared)."""
     dev = cuda.resolve_device(device)
     hkv, dh, n_layers = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
 
@@ -333,8 +439,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
         mc = init_mamba_cache(cfg, batch, dev)
         return {x: t.expand(*lead, *t.shape).clone() for x, t in mc.items()}
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         return kv(n_layers)
+    if cfg.family == "audio":
+        out = kv(n_layers)
+        out["xk"] = torch.zeros((n_layers, batch, cfg.n_audio_frames, hkv,
+                                 dh), dtype=CACHE_DTYPE, device=dev)
+        out["xv"] = torch.zeros_like(out["xk"])
+        return out
     if cfg.family == "ssm":
         return mamba(n_layers)
     if cfg.family == "hybrid":
@@ -344,7 +456,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
         if tail:
             out["tail"] = mamba(tail)
         return out
-    raise NotImplementedError(f"{cfg.family!r} waits in ROADMAP Queue 1")
+    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 
 def _mamba_caches(cache: dict) -> list:
@@ -375,9 +487,15 @@ def prefill(cfg: ArchConfig, params: Model, batch: dict, max_len: int):
     if s > max_len:
         raise ValueError(f"a prompt of {s} tokens does not fit a cache of "
                          f"{max_len}")
-    x = _embed(cfg, params, tokens)
-    x, kvs, mcs = _layers(cfg, params, x, _positions(cfg, tokens), True)
+    x, positions, enc_out = _inputs(cfg, params, batch)
+    x, kvs, mcs = _layers(cfg, params, x, positions, True, enc_out=enc_out)
     cache = init_cache(cfg, b, max_len, device=tokens.device)
+    if enc_out is not None:
+        # the static cross-attention caches: each layer's k, v of the
+        # encoder's output (as many frames as it has)
+        xkv = [blk.xattn.project_kv(enc_out) for blk in params.layers]
+        for i, name in enumerate(("xk", "xv")):
+            cache[name] = torch.stack([t[i] for t in xkv]).to(CACHE_DTYPE)
     for (kc, vc), (k, v) in zip(_kv_caches(cache), kvs):
         kc[:, :s] = k
         vc[:, :s] = v
@@ -408,9 +526,12 @@ def decode_step(cfg: ArchConfig, params: Model, cache: dict, tokens,
         ssm.copy_(new_ssm)
         return x
 
-    if cfg.family == "dense":
+    if cfg.family in ATTENTION_STACKS:
+        cross = (zip(cache["xk"], cache["xv"]) if cfg.family == "audio"
+                 else itertools.repeat(None))
         for blk, window in zip(params.layers, _windows(cfg)):
-            x = blk.decode(x, *next(kvs), idx, window=window)
+            x = blk.decode(x, *next(kvs), idx, window=window,
+                           cross=next(cross))
     elif cfg.family == "ssm":
         for blk in params.layers:
             x = mamba(blk, x)

@@ -2,17 +2,20 @@
 
 No module of ``repro`` answers to this one: the reference keeps its
 parameters as one pytree with each layer kind's weights stacked along a
-leading axis (``layers``: [L, ...]; the hybrid's ``mamba_groups``:
-[n_groups, every, ...] and ``mamba_tail``: [tail, ...]), where the port
-keeps one ``nn.Module`` a layer. ``from_reference`` unstacks the tree
-(taken as numpy arrays, so that nothing here imports JAX) into a
-``Model`` whose parameter names are the tree's paths: parameter
+leading axis (``layers``: [L, ...], the MoE's experts [L, E, ...]; the
+audio ``encoder``: [Le, ...]; the hybrid's ``mamba_groups``: [n_groups,
+every, ...] and ``mamba_tail``: [tail, ...]), where the port keeps one
+``nn.Module`` a layer. ``from_reference`` unstacks the tree (taken as
+numpy arrays, so that nothing here imports JAX) into a ``Model`` whose
+parameter names are the tree's paths: parameter
 ``mamba_groups.2.4.mamba.in_proj`` is
-``tree["mamba_groups"]["mamba"]["in_proj"][2, 4]``. The tests hold the
-port against the reference on weights shared this way. ``to_reference``
-goes the other way, for any tensors keyed by parameter name (gradients,
-optimizer moments too): the tests compare gradients leaf by leaf with
-it, and checkpoints keep the reference's on-disk layout through it.
+``tree["mamba_groups"]["mamba"]["in_proj"][2, 4]`` and
+``encoder.3.attn.wq`` is ``tree["encoder"]["attn"]["wq"][3]``. The tests
+hold the port against the reference on weights shared this way.
+``to_reference`` goes the other way, for any tensors keyed by parameter
+name (gradients, optimizer moments too): the tests compare gradients
+leaf by leaf with it, and checkpoints keep the reference's on-disk
+layout through it.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from .. import cuda
 from ..configs.base import ArchConfig
 from .transformer import Model
 
-STACKED = ("layers", "mamba_groups", "mamba_tail")
+STACKED = ("layers", "mamba_groups", "mamba_tail", "encoder")
 
 
 def _leaves(tree: Mapping, prefix: str = "") -> dict:

@@ -446,10 +446,11 @@ def test_flash_attention_launch_refuses_a_plan_outside_its_limits(
     lib = fa._lib()
     stream = torch.cuda.current_stream().cuda_stream
 
-    def call(d, block_q, plan_args):
+    def call(d, block_q, plan_args, skv=256, kv_len=256, causal=1):
         return lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-            4, 256, d, 2, block_q, 128, 1, -1, 0.125, *plan_args, stream)
+            4, 256, skv, kv_len, d, 2, block_q, 128, causal, -1, 0.125,
+            *plan_args, stream)
 
     for i, bad in ((0, 2), (1, 96), (2, 512), (2, 128), (3, 32), (3, 16)):
         wrong = list(args)
@@ -457,6 +458,10 @@ def test_flash_attention_launch_refuses_a_plan_outside_its_limits(
         assert call(64, 128, wrong) == 1
     assert call(65, 128, args) == 1          # d above the staged width
     assert call(64, 96, args) == 1           # a q tile not dividing s
+    assert call(64, 128, args, kv_len=0) == 1    # a bound outside 1..skv
+    assert call(64, 128, args, kv_len=257) == 1
+    assert call(64, 128, args, skv=128, kv_len=100) == 1  # causal across
+    assert call(64, 128, args, skv=200, kv_len=100, causal=0) == 1  # tile
     torch.cuda.synchronize()
     assert bool((out == 7.0).all())
     before = fa.launches
@@ -607,7 +612,37 @@ def test_model_call_sites_match_plain(card, shape):
     torch.testing.assert_close(hf.cpu(), h_ref, rtol=3e-3, atol=3e-3)
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b"])
+def _family_batch(cfg, toks):
+    """``toks`` (B, S) with the entries of ``cfg``'s family, on the CPU:
+    audio embeddings (normal), patch embeddings (normal x 0.02), M-RoPE
+    positions 0..S-1."""
+    rng = np.random.default_rng(4)
+    b, s = toks.shape
+    batch = {"tokens": toks}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_audio_frames, cfg.d_model), dtype=np.float32))
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.n_patches, cfg.d_model), dtype=np.float32) * 0.02)
+        batch["positions"] = torch.arange(s)[None, :, None].expand(b, s, 3)
+    return batch
+
+
+def _attention_launches(cfg) -> int:
+    """Flash-attention launches of one forward: one an attention site
+    (audio: the encoder's layers, then self- and cross-attention a decoder
+    layer)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "audio":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+@pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b",
+                                  "qwen3-moe-235b-a22b", "whisper-small",
+                                  "qwen2-vl-2b"])
 @torch.no_grad()
 def test_tiny_model_on_card_matches_cpu(card, name):
     """One tiny model's weights on both devices: prefill through the
@@ -625,15 +660,15 @@ def test_tiny_model_on_card_matches_cpu(card, name):
     on_card.load_state_dict(model.state_dict())
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (2, 40)))
-    sites = (cfg.n_layers if cfg.family == "dense"
-             else cfg.n_layers // cfg.shared_attn_every)
-    mamba_layers = 0 if cfg.family == "dense" else cfg.n_layers
+    batch = _family_batch(cfg, toks)
+    mamba_layers = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     before = (fa.launches, ssd.launches)
-    last, cache, n = tf.prefill(cfg, on_card, {"tokens": toks.to(card)}, 48)
+    last, cache, n = tf.prefill(cfg, on_card, {
+        k: v.to(card) for k, v in batch.items()}, 48)
     torch.cuda.synchronize()
     assert (fa.launches - before[0], ssd.launches - before[1]) == \
-        (sites, mamba_layers)
-    ref_last, ref_cache, _ = tf.prefill(cfg, model, {"tokens": toks}, 48)
+        (_attention_launches(cfg), mamba_layers)
+    ref_last, ref_cache, _ = tf.prefill(cfg, model, batch, 48)
     assert (last.cpu() - ref_last).abs().max() < 0.05
     step, _ = tf.decode_step(cfg, on_card, cache, toks[:, :1].to(card), n)
     ref_step, _ = tf.decode_step(cfg, model, ref_cache, toks[:, :1], n)
@@ -664,6 +699,74 @@ def test_flash_attention_wide_heads_match_plain(card, d, dtype, group,
         out.float(), fa.attention_plain(q, k, v, causal=causal,
                                         window=window).float(),
         rtol=RTOL[dtype], atol=RTOL[dtype])
+
+
+# (q heads, kv heads, queries, keys, kv_len, d, (block_q, block_kv))
+FA_CROSS_CASES = [
+    (48, 48, 256, 1536, 1500, 64, (128, 128)),   # whisper's cross-attention
+    (48, 48, 1536, 1536, 1500, 64, (128, 128)),  # its encoder
+    (8, 4, 128, 384, 300, 128, (64, 128)),       # GQA 2, narrow block
+    (12, 4, 256, 128, 77, 128, (128, 64)),       # GQA 3, fewer keys
+    (8, 2, 64, 512, 512, 64, (64, 256)),         # GQA 4, no pad
+    (4, 4, 192, 96, 1, 64, (64, 32)),            # one real key
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,bh_kv,sq,skv,kv_len,d,tiling", FA_CROSS_CASES)
+def test_flash_attention_across_lengths_matches_plain(card, bh, bh_kv, sq,
+                                                      skv, kv_len, d,
+                                                      tiling, dtype):
+    """Sq != Skv without a mask and a key-length bound: the kernel
+    against ``attention_plain(kv_len=...)``, out and lse, RTOL of the
+    dtype (lse: float32's); GQA 1-4, d 64 and 128, both block shapes."""
+    rng = np.random.default_rng(sq + skv + kv_len)
+    q = _randn(rng, (bh, sq, d), card).to(dtype)
+    k, v = (_randn(rng, (bh_kv, skv, d), card).to(dtype) for _ in range(2))
+    kw = dict(block_q=tiling[0], block_kv=tiling[1], causal=False,
+              kv_len=kv_len)
+    before = fa.launches
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref, lse_ref = fa.attention_plain(q, k, v, causal=False, kv_len=kv_len,
+                                      return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL[dtype],
+                               atol=RTOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, rtol=RTOL[torch.float32],
+                               atol=RTOL[torch.float32])
+    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 96)])
+def test_flash_attention_bound_at_the_length_changes_nothing(card, causal,
+                                                            window, dtype):
+    """On the shapes callers passed before the bound (Sq = Skv), an
+    explicit ``kv_len`` = Skv gives out and lse bit-identical to none, at
+    every staged width and both block shapes; and a causal call with its
+    pad keys bounded (the model's padded prefill) bit-identical on the
+    real rows."""
+    rng = np.random.default_rng(21)
+    for d in (64, 128, 256):
+        for bq, bkv in ((64, 128), (128, 128), (256, 512)):
+            q = _randn(rng, (4, 512, d), card).to(dtype)
+            k, v = (_randn(rng, (2, 512, d), card).to(dtype)
+                    for _ in range(2))
+            kw = dict(block_q=bq, block_kv=bkv, causal=causal,
+                      window=window, return_lse=True)
+            out, lse = fa.flash_attention(q, k, v, **kw)
+            out2, lse2 = fa.flash_attention(q, k, v, kv_len=512, **kw)
+            assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    if causal:
+        q = _randn(rng, (4, 128, 64), card).to(dtype)
+        k, v = (_randn(rng, (2, 128, 64), card).to(dtype) for _ in range(2))
+        full = fa.flash_attention(q, k, v, block_q=64, block_kv=64,
+                                  window=window)
+        bound = fa.flash_attention(q, k, v, block_q=64, block_kv=64,
+                                   window=window, kv_len=70)
+        assert torch.equal(full[:, :70], bound[:, :70])
 
 
 def test_budget_scan_kernel_bit_identical_to_plain(card):
@@ -1035,7 +1138,9 @@ def test_ssd_function_grads_match_plain(card, bsz, s, nh, p, n, chunk):
 
 
 @pytest.mark.parametrize("remat", ["full", "dots"])
-@pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b",
+                                  "qwen3-moe-235b-a22b", "whisper-small",
+                                  "qwen2-vl-2b"])
 def test_tiny_train_step_on_card_matches_cpu(card, name, remat,
                                              monkeypatch):
     """One ``tiny()`` train step (remat full or dots, AdamW) on the card,
@@ -1063,13 +1168,14 @@ def test_tiny_train_step_on_card_matches_cpu(card, name, remat,
     gpu["opt"] = opt_mod.init_opt_state(
         opt, dict(gpu["params"].named_parameters()))
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 129))
+    batch = _family_batch(cfg, torch.from_numpy(toks))
     step = ts.make_train_step(cfg, opt, ts.TrainConfig(remat=remat))
     before = (fa.launches, ssd.launches)
-    _, m_gpu = step(gpu, {"tokens": toks})
+    _, m_gpu = step(gpu, batch)
     torch.cuda.synchronize()
     assert fa.launches > before[0]
-    assert (ssd.launches > before[1]) == (cfg.family != "dense")
-    _, m_cpu = step(cpu, {"tokens": toks})
+    assert (ssd.launches > before[1]) == (cfg.family == "hybrid")
+    _, m_cpu = step(cpu, batch)
     assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) \
         < 1e-4 * abs(float(m_cpu["loss"]))
     for (name_, p), q in zip(gpu["params"].named_parameters(),

@@ -24,6 +24,7 @@ from repro.core.costmodel import estimate as ref_estimate
 from repro.core.devices import HUB_DEVICES as REF_DEVICES
 from repro.core.record import merge_shards as ref_merge_shards
 from repro.kernels import flash_attention as ref_fa
+from repro.models import attention as ref_attn
 from repro.kernels import ssd as ref_ssd
 from repro_torch.core import record
 from repro_torch.core.cache import result_to_json
@@ -376,7 +377,8 @@ def test_attention_plans_are_pinned():
 
 
 def _attn_mirror(q, k, v, block_q, block_kv, causal, window, pl, *,
-                 skip_alpha_at=None, short=0):
+                 kv_len=None, skip_alpha_at=None, short=0,
+                 no_len_mask=False):
     """csrc/flash_attention.cu's walk in numpy, on float32: blocks heaviest
     first, each walking its q tile in sub-tiles of ``pl.sub_q`` rows (q
     staged with rows clamped to the sequence and zero columns past d),
@@ -387,11 +389,15 @@ def _attn_mirror(q, k, v, block_q, block_kv, causal, window, pl, *,
     then the group's over its 8 lanes (a butterfly of xor 1, 2, 4), the
     alpha rescale, p handed to the group's slice and read by its pair of
     groups row by kv row, and acc / max(l, 1e-30) for the tile's rows.
-    ``skip_alpha_at`` (drop the alpha rescale on that sub-tile of every
-    walk) and ``short`` (visit that many kv tiles fewer) mutate it to show
-    the test can fail."""
+    Keys from ``kv_len`` on (default: none) are a pad: the walk ends at the
+    sub-tile holding key kv_len - 1 and masks the pad where a sub-tile
+    holds some. ``skip_alpha_at`` (drop the alpha rescale on that sub-tile
+    of every walk), ``short`` (visit that many kv tiles fewer) and
+    ``no_len_mask`` (leave the pad unmasked) mutate it to show the test can
+    fail."""
     f32 = np.float32
     bh, s, d = q.shape
+    kv_len = k.shape[1] if kv_len is None else kv_len
     group = bh // k.shape[0]
     ng, nr, sq, skv, dm = pl.groups, pl.rows, pl.sub_q, pl.sub_kv, pl.d_max
     ncol = skv // 8
@@ -409,22 +415,25 @@ def _attn_mirror(q, k, v, block_q, block_kv, causal, window, pl, *,
 
     def staged(x, first, n):
         out = np.zeros((n, dm), f32)
-        out[:, :d] = x[np.minimum(first + np.arange(n), s - 1)]
+        out[:, :d] = x[np.minimum(first + np.arange(n), len(x) - 1)]
         return out
 
     out = np.full(q.shape, np.nan, f32)
-    n_q, n_kv = s // block_q, s // block_kv
+    n_q = s // block_q
     subs = -(-block_kv // skv)
     for b in range(bh * n_q):
         qi, h = n_q - 1 - b // bh, b % bh
         q_begin = qi * block_q
-        end = min(n_kv, (q_begin + block_q - 1) // block_kv + 1) \
-            if causal else n_kv
+        end = -(-kv_len // block_kv)
+        if causal:
+            end = min(end, (q_begin + block_q - 1) // block_kv + 1)
         begin = 0
         if window:
             lo = q_begin - window + 1
             begin = lo // block_kv if lo > 0 else 0
-        n_sub = (end - short - begin) * subs
+        last_rows = min(block_kv, kv_len - (end - 1) * block_kv)
+        n_sub = ((end - begin - 1) * subs + -(-last_rows // skv)
+                 if end > begin else 0) - short * subs
         for qs0 in range(0, block_q, sq):
             q0 = q_begin + qs0
             qt = staged(q[h], q0, sq)
@@ -440,7 +449,8 @@ def _attn_mirror(q, k, v, block_q, block_kv, causal, window, pl, *,
                 x = (qt @ kt.T)[rows[:, :, None, None],
                                 cols[None, None]] * scale          # (R,G,8,C)
                 if (n_cols < skv or (causal and kv0 + skv - 1 > q0) or
-                        (window and q0 + sq - 1 - kv0 >= window)):
+                        (window and q0 + sq - 1 - kv0 >= window) or
+                        kv0 + skv > kv_len):
                     q_pos = q0 + rows[:, :, None, None]
                     kv_pos = kv0 + cols[None, None]
                     masked = np.zeros(x.shape, bool)
@@ -448,6 +458,8 @@ def _attn_mirror(q, k, v, block_q, block_kv, causal, window, pl, *,
                         masked |= q_pos < kv_pos
                     if window:
                         masked |= q_pos - kv_pos >= window
+                    if not no_len_mask:
+                        masked |= kv_pos >= kv_len
                     x = np.where(masked, f32(-1e30), x)
                     x = np.where(cols[None, None] >= n_cols, f32(-np.inf), x)
                 m_new = np.maximum(m, x.max(axis=3).max(axis=2))
@@ -525,6 +537,87 @@ def test_attention_mirror_fails_when_mutated(mutation):
     out = _attn_mirror(q, k, v, 128, 128, True, None, pl, **mutation)
     assert not np.allclose(out, plain, rtol=RTOL["float32"],
                            atol=RTOL["float32"])
+
+
+# (q heads, kv heads, queries, keys, kv_len, d, block_q, block_kv, causal,
+# window): keys padded to the kv tile with kv_len the real ones
+MIRROR_CROSS_CASES = [
+    (4, 2, 256, 1536, 1500, 64, 128, 128, False, None),  # whisper's cross
+    (4, 4, 1536, 1536, 1500, 64, 128, 128, False, None),  # its encoder
+    (2, 1, 64, 192, 131, 66, 64, 96, False, None),  # narrow, part sub-tiles
+    (2, 2, 128, 128, 70, 16, 64, 64, True, None),   # causal, pad keys
+    (2, 1, 128, 128, 100, 16, 128, 128, True, 32),  # window, pad keys
+]
+
+
+@pytest.mark.parametrize("bh,bh_kv,sq,skv,kv_len,d,bq,bkv,causal,window",
+                         MIRROR_CROSS_CASES)
+def test_attention_mirror_across_lengths_equals_plain_and_reference(
+        bh, bh_kv, sq, skv, kv_len, d, bq, bkv, causal, window):
+    """The walk with Sq != Skv and a key-length bound against
+    ``attention_plain(kv_len=...)`` and, on the real keys alone, the
+    reference's ``blockwise_attention`` (the Pallas kernel takes one S);
+    under a mask, the real query rows only (the pad rows' are sliced off
+    by the caller)."""
+    rng = np.random.default_rng(sq + skv)
+    q = _randn(rng, (bh, sq, d))
+    k, v = _randn(rng, (bh_kv, skv, d)), _randn(rng, (bh_kv, skv, d))
+    pl = fa.plan(bq, bkv, sq, d, skv=skv)
+    out = _attn_mirror(q, k, v, bq, bkv, causal, window, pl, kv_len=kv_len)
+    plain = fa.attention_plain(*map(torch.from_numpy, (q, k, v)),
+                               causal=causal, window=window,
+                               kv_len=kv_len).numpy()
+    rows = kv_len if causal else sq
+    np.testing.assert_allclose(out[:, :rows], plain[:, :rows],
+                               rtol=RTOL["float32"], atol=RTOL["float32"])
+    ref = np.asarray(ref_attn.blockwise_attention(
+        jnp.asarray(q[:, :rows].transpose(1, 0, 2)[None]),
+        *(jnp.asarray(x[:, :kv_len].transpose(1, 0, 2)[None])
+          for x in (k, v)), causal=causal, window=window))[0]
+    np.testing.assert_allclose(out[:, :rows], ref.transpose(1, 0, 2),
+                               rtol=RTOL["float32"], atol=RTOL["float32"])
+
+
+def test_attention_mirror_fails_without_the_length_mask():
+    """The cross-length mirror test can fail: the pad keys left unmasked
+    on the sub-tile that straddles kv_len."""
+    rng = np.random.default_rng(12)
+    q = _randn(rng, (2, 64, 16))
+    k, v = _randn(rng, (1, 128, 16)), _randn(rng, (1, 128, 16))
+    pl = fa.plan(64, 128, 64, 16, skv=128)
+    plain = fa.attention_plain(*map(torch.from_numpy, (q, k, v)),
+                               causal=False, kv_len=100).numpy()
+    assert np.allclose(_attn_mirror(q, k, v, 64, 128, False, None, pl,
+                                    kv_len=100), plain,
+                       rtol=RTOL["float32"], atol=RTOL["float32"])
+    out = _attn_mirror(q, k, v, 64, 128, False, None, pl, kv_len=100,
+                       no_len_mask=True)
+    assert not np.allclose(out, plain, rtol=RTOL["float32"],
+                           atol=RTOL["float32"])
+
+
+def test_flash_attention_takes_lengths_and_a_bound_on_the_cpu():
+    """The wrapper's checks of Sq, Skv and kv_len, and its CPU dispatch
+    (``attention_plain`` with the bound): a bound outside 1..Skv, a mask
+    across lengths and a kv tile not dividing Skv are refused; lse is
+    (BH, Sq)."""
+    q, k = torch.randn(2, 64, 16), torch.randn(1, 192, 16)
+    out, lse = fa.flash_attention(q, k, k, block_q=64, block_kv=64,
+                                  causal=False, kv_len=150, return_lse=True)
+    assert out.shape == (2, 64, 16) and lse.shape == (2, 64)
+    want = fa.attention_plain(q, k[:, :150], k[:, :150], causal=False)
+    torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+    for bad in (0, 193):
+        with pytest.raises(ValueError, match="kv_len"):
+            fa.flash_attention(q, k, k, block_q=64, block_kv=64,
+                               causal=False, kv_len=bad)
+    for kw in ({"causal": True}, {"causal": False, "window": 16}):
+        with pytest.raises(ValueError, match="as many queries as keys"):
+            fa.flash_attention(q, k, k, block_q=64, block_kv=64, **kw)
+    with pytest.raises(AssertionError):
+        fa.flash_attention(q, k, k, block_q=64, block_kv=128, causal=False)
+    assert fa.plan(64, 128, 64, 16, skv=192) is None
+    assert fa.plan(64, 64, 64, 16, skv=192) == fa.plan(64, 64, 64, 16)
 
 
 def test_make_live_without_cuda_raises_unless_cpu():

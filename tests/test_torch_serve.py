@@ -36,7 +36,9 @@ from repro_torch.inference.engine import Request, ServingEngine
 from repro_torch.launch import serve
 from repro_torch.models.weights import from_reference
 
-ARCHS = ["gemma3-1b", "olmo-1b", "mamba2-130m", "zamba2-1.2b"]
+ARCHS = ["gemma3-1b", "olmo-1b", "mamba2-130m", "zamba2-1.2b",
+         "qwen3-moe-235b-a22b", "grok-1-314b", "whisper-small",
+         "qwen2-vl-2b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -56,7 +58,8 @@ def _model(name: str):
 @pytest.mark.parametrize("name", ARCHS)
 def test_greedy_tokens_equal_reference(name, monkeypatch):
     """Three requests, one shorter (both engines left-align it and pad
-    with token 0), 8 new tokens each."""
+    with token 0), 8 new tokens each; each engine builds its family's
+    inputs (zero audio or patch embeddings, M-RoPE positions)."""
     for mod, dt in ((ref_tf, jnp.float32), (tf, torch.float32)):
         monkeypatch.setattr(mod, "COMPUTE_DTYPE", dt)
         monkeypatch.setattr(mod, "CACHE_DTYPE", dt)
@@ -126,6 +129,20 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
     assert out[4].startswith("on cpu: prefill ") and "3 steps" in out[4]
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "whisper-small",
+                                  "qwen2-vl-2b"])
+def test_serve_launcher_serves_every_family(capsys, arch):
+    """A prompt of 9 tokens: qwen2-vl's 8 patch embeddings replace the
+    first 8 token embeddings."""
+    serve.main(["--device", "cpu", "--preset", "tiny", "--arch", arch,
+                "--batch", "2", "--prompt-len", "9", "--new-tokens", "3",
+                "--max-len", "16"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == f"arch={arch}-tiny batch=2 prompt=9 new=3"
+    assert out[3].startswith("generated 6 tokens in ")
+    assert out[4].startswith("on cpu: prefill ") and "3 steps" in out[4]
+
+
 def test_serve_raises_without_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -148,6 +165,26 @@ def test_serving_shim_warns_with_the_ports_class():
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         importlib.import_module("repro_torch.inference.engine")
+
+
+@pytest.mark.parametrize("name", ["whisper-small", "qwen2-vl-2b",
+                                  "olmo-1b"])
+def test_family_inputs_match_reference_engine(name):
+    """The batch entries ``generate`` adds beside the tokens: zero audio
+    embeddings (B, frames, d) float32; zero patch embeddings (B, patches,
+    d) and positions (B, S, 3) 0..S-1; nothing for a text-only family."""
+    cfg = configs.get_config(name).tiny()
+    got = inference.family_inputs(cfg, 3, 10, "cpu")
+    want = {"audio": {"audio_embeds": (3, cfg.n_audio_frames, cfg.d_model)},
+            "vlm": {"patch_embeds": (3, cfg.n_patches, cfg.d_model),
+                    "positions": (3, 10, 3)}}.get(cfg.family, {})
+    assert {k: tuple(v.shape) for k, v in got.items()} == want
+    for key, value in got.items():
+        if key == "positions":
+            assert torch.equal(value, torch.arange(10)[None, :, None]
+                               .expand(3, 10, 3))
+        else:
+            assert value.dtype == torch.float32 and not value.any()
 
 
 def test_request_defaults_match_reference():

@@ -7,6 +7,7 @@ caches and shards are compared field for field. The card-side run of the
 same path is chip_smoke.py.
 """
 import ast
+import dataclasses
 import json
 import os
 import pathlib
@@ -128,19 +129,20 @@ def test_registries_hold_this_slice_only():
     for name in ("flash_attention", "ssd"):
         assert get_kernel(name).tier == "framework"
     assert get_kernel("gemm").module is gm
-    # the LM serving slice: every config of the reference, the dense, ssm
-    # and hybrid families served, the others refused
+    # the LM slices: every config of the reference, all six families
+    # served, each config's tiny model built
     from repro.configs import ARCHS as REF_ARCHS
     from repro_torch.configs import ARCHS
     from repro_torch.models.transformer import FAMILIES, init_params
     assert list(ARCHS) == list(REF_ARCHS)
-    assert FAMILIES == ("dense", "ssm", "hybrid")
-    assert {c.family for c in ARCHS.values()} - set(FAMILIES) == \
-        {"moe", "audio", "vlm"}
+    assert FAMILIES == ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+    assert {c.family for c in ARCHS.values()} == set(FAMILIES)
     for cfg in ARCHS.values():
-        if cfg.family not in FAMILIES:
-            with pytest.raises(NotImplementedError):
-                init_params(cfg.tiny(), device="cpu")
+        model = init_params(cfg.tiny(), device="cpu")
+        assert model.cfg.family == cfg.family
+    with pytest.raises(ValueError, match="unknown family"):
+        init_params(dataclasses.replace(cfg.tiny(), family="other"),
+                    device="cpu")
 
 
 def test_t4_files_cross_packages_byte_for_byte(tmp_path):

@@ -31,7 +31,9 @@ Tolerances:
   is 2^-8 of a value and the two frameworks round at different places
   (XLA keeps fused chains in float32; the reference's embedding gradient
   is scattered in bf16, the port's in float32); the largest leaf error
-  measured here is about 0.04.
+  measured here is about 0.04. qwen3-moe-235b-a22b is held in float32
+  only (``FLOAT32_ONLY``): in bf16 the two packages route a few tokens
+  to other experts (tests/test_torch_models.py says why).
 * One train step (float32): parameters within 1e-5 relative and
   ``STEP_ATOL`` = 3e-5, a tenth of the learning rate, absolute of the
   reference's. AdamW's first step moves a parameter by lr g / (|g| +
@@ -76,7 +78,8 @@ from repro_torch.training import optimizer, train_step as ts
 
 GRAD_TOL = 1e-4
 MODEL_TOL = {"float32": (1e-4, 1e-3), "bfloat16": (0.02, 0.1)}
-ARCHS = ["gemma3-1b", "mamba2-130m", "zamba2-1.2b"]
+ARCHS = ["gemma3-1b", "mamba2-130m", "zamba2-1.2b", "qwen3-moe-235b-a22b",
+         "whisper-small", "qwen2-vl-2b"]
 B, S = 2, 40   # tokens (B, S + 1); S above gemma3 tiny's window of 32
 STEP_ATOL = 3e-5
 
@@ -122,6 +125,24 @@ def _model(name):
 def _tokens(cfg, seed=1, rows=B):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab, (rows, S + 1)).astype(np.int32)
+
+
+def _batch(cfg, seed=1, rows=B):
+    """Tokens (rows, S + 1) and the entries of ``cfg``'s family, in numpy:
+    audio embeddings (normal), patch embeddings (normal x 0.02), M-RoPE
+    positions 0..S (the train step drops the last, as the tokens')."""
+    rng = np.random.default_rng(seed + 100)
+    out = {"tokens": _tokens(cfg, seed, rows)}
+    if cfg.family == "audio":
+        out["audio_embeds"] = _randn(rng, rows, cfg.n_audio_frames,
+                                     cfg.d_model)
+    if cfg.family == "vlm":
+        out["patch_embeds"] = _randn(rng, rows, cfg.n_patches, cfg.d_model,
+                                     scale=0.02)
+        out["positions"] = np.ascontiguousarray(np.broadcast_to(
+            np.arange(S + 1, dtype=np.int32)[None, :, None], (rows, S + 1,
+                                                              3)))
+    return out
 
 
 # -------------------------------------------------------------------- data
@@ -240,6 +261,94 @@ def test_chunked_cross_entropy_matches_reference(chunk):
 
 
 # ------------------------------------------------------- call-site backward
+@pytest.mark.parametrize("sq,skv,group", [
+    (40, 24, 1), (70, 130, 2), (129, 300, 4), (64, 64, 2)])
+def test_flash_backward_across_lengths_matches_reference(sq, skv, group):
+    """``_Flash`` without a mask, Sq queries over Skv keys, each padded to
+    its tile and the pad keys masked by the bound (``kv_len`` = Skv),
+    against ``jax.vjp`` of the reference's ``blockwise_attention``: the
+    output and dq, dk, dv (the pad's gradients cut off)."""
+    rng = np.random.default_rng(sq + skv)
+    b, h, d = 2, 4, 16
+    q = _randn(rng, b, sq, h, d)
+    k, v = (_randn(rng, b, skv, h // group, d) for _ in range(2))
+    dout = _randn(rng, b, sq, h, d)
+    ref_out, vjp = jax.vjp(functools.partial(
+        ref_attn.blockwise_attention, causal=False, block_kv=16),
+        *map(jnp.asarray, (q, k, v)))
+    ref_grads = vjp(jnp.asarray(dout))
+    qt, kt, vt = (_t(x).requires_grad_() for x in (q, k, v))
+    out = attention.blockwise_attention(qt, kt, vt, causal=False)
+    grads = torch.autograd.grad(out, (qt, kt, vt), _t(dout))
+    assert _rel(out.detach(), ref_out) < GRAD_TOL
+    for ours, ref in zip(grads, ref_grads):
+        assert ours.shape == ref.shape
+        assert _rel(ours, ref) < GRAD_TOL
+
+
+def test_flash_backward_bf16_dq_cancels_as_the_reference():
+    """Why a bf16 dq can stand far from the oracle's: the flash backward's
+    delta = sum(dout * out) reads the bf16-rounded output, in the
+    reference's custom VJP as in the port's ``_flash_bwd``. Keys and
+    values that share a large common component (as whisper's encoder
+    output gives its cross-attention) make dq = scale * sum_j p_j (dp_j -
+    delta) k_j cancel, and both packages' dq then stand more than bf16's
+    RTOL from autograd through their oracle; in float32 both agree with
+    it within ``GRAD_TOL``, and dk and dv in either dtype."""
+    rng = np.random.default_rng(13)
+    b, sq, skv, h, d = 1, 128, 600, 4, 32
+    q = _randn(rng, b, sq, h, d, scale=0.5)
+    k, v = (_randn(rng, b, skv, h, d) + 3.0 * _randn(rng, b, 1, h, d)
+            for _ in range(2))
+    dout = _randn(rng, b, sq, h, d)
+    for dtype, jdt in ((torch.float32, jnp.float32),
+                       (torch.bfloat16, jnp.bfloat16)):
+        args = [jnp.asarray(x, jdt) for x in (q, k, v)]
+        _, vjp = jax.vjp(functools.partial(
+            ref_attn.blockwise_attention, causal=False, block_kv=128), *args)
+        _, oracle = jax.vjp(functools.partial(
+            ref_attn.attention_reference, causal=False), *args)
+        ref = [np.asarray(g, np.float32)
+               for g in vjp(jnp.asarray(dout, jdt))]
+        ref_oracle = [np.asarray(g, np.float32)
+                      for g in oracle(jnp.asarray(dout, jdt))]
+        leaves = [_t(x).to(dtype).requires_grad_() for x in (q, k, v)]
+        out = attention.blockwise_attention(*leaves, causal=False)
+        ours = [g.float() for g in torch.autograd.grad(
+            out, leaves, _t(dout).to(dtype))]
+        plain = attention.attention_reference(*leaves, causal=False)
+        oracle_ours = [g.float() for g in torch.autograd.grad(
+            plain, leaves, _t(dout).to(dtype))]
+        for i, name in enumerate(("dq", "dk", "dv")):
+            errs = (_rel(ours[i], oracle_ours[i]),
+                    _rel(ref[i], ref_oracle[i]))
+            if dtype == torch.bfloat16 and name == "dq":
+                assert min(errs) > 2e-2, errs
+            else:
+                assert max(errs) < (GRAD_TOL if dtype == torch.float32
+                                    else 2e-2), (name, errs)
+
+
+def test_flash_bwd_leaves_the_pad_keys_out():
+    """``_flash_bwd`` on kernel-layout tensors with 50 real keys of 64:
+    dk and dv of the pad are exactly 0 and the real keys' gradients equal
+    those of the unpadded call."""
+    rng = np.random.default_rng(3)
+    q, dout = (_t(_randn(rng, 4, 64, 16)) for _ in range(2))
+    k, v = (_t(_randn(rng, 2, 64, 16)) for _ in range(2))
+    out, lse = fa.attention_plain(q, k, v, causal=False, return_lse=True,
+                                  kv_len=50)
+    dq, dk, dv = attention._flash_bwd(q, k, v, out, lse, dout, causal=False,
+                                      window=None, kv_len=50)
+    assert not dk[:, 50:].any() and not dv[:, 50:].any()
+    out2, lse2 = fa.attention_plain(q, k[:, :50], v[:, :50], causal=False,
+                                    return_lse=True)
+    want = attention._flash_bwd(q, k[:, :50], v[:, :50], out2, lse2, dout,
+                                causal=False, window=None)
+    for ours, ref in zip((dq, dk[:, :50], dv[:, :50]), want):
+        assert _rel(ours, ref) < 1e-6
+
+
 @pytest.mark.parametrize("s,group,window", [
     (40, 2, None), (70, 2, 16), (64, 1, None), (129, 4, 8)])
 def test_flash_backward_matches_reference(s, group, window):
@@ -347,12 +456,19 @@ def test_to_reference_inverts_from_reference():
         to_reference(cfg, {"embed": model.embed})
 
 
-@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS
-                                        for d in MODEL_TOL],
-                ids=lambda p: f"{p[0]}-{p[1]}")
+# held in float32 only: in bf16 the two packages route some tokens to other
+# experts (tests/test_torch_models.py, ``FLOAT32_ONLY``)
+FLOAT32_ONLY = {"qwen3-moe-235b-a22b"}
+
+
+@pytest.fixture(scope="module", params=[
+    (a, d) for a in ARCHS for d in MODEL_TOL
+    if d == "float32" or a not in FLOAT32_ONLY],
+    ids=lambda p: f"{p[0]}-{p[1]}")
 def loss_and_grads(request):
     """Both packages' training loss (remat full, chunked CE with z-loss)
-    and its gradient by leaf on one seeded batch, in one compute dtype."""
+    and its gradient by leaf on one seeded batch with its family's
+    inputs, in one compute dtype."""
     name, dtype = request.param
     with pytest.MonkeyPatch.context() as mp:
         if dtype == "float32":
@@ -360,12 +476,13 @@ def loss_and_grads(request):
             mp.setattr(tf, "COMPUTE_DTYPE", torch.float32)
         cfg, model = _model(name)
         ref_cfg = ref_configs.get_config(name).tiny()
-        toks = _tokens(cfg)
+        batch = _batch(cfg)
         tc = ts.TrainConfig()
         ref_loss, ref_grads = jax.jit(jax.value_and_grad(ref_ts.make_loss_fn(
-            ref_cfg, ref_ts.TrainConfig())))(_ref_params(name),
-                                             {"tokens": jnp.asarray(toks)})
-        loss = ts.make_loss_fn(cfg, tc)(model, {"tokens": _t(toks)})
+            ref_cfg, ref_ts.TrainConfig())))(
+            _ref_params(name), {k: jnp.asarray(v) for k, v in batch.items()})
+        loss = ts.make_loss_fn(cfg, tc)(model, {k: _t(v)
+                                                for k, v in batch.items()})
         names = [n for n, _ in model.named_parameters()]
         grads = torch.autograd.grad(loss, list(model.parameters()))
         return {"tol": MODEL_TOL[dtype], "loss": (loss.item(),
@@ -388,7 +505,9 @@ def test_model_grads_match_reference(loss_and_grads):
     assert errs[worst] <= loss_and_grads["tol"][1], (worst, errs[worst])
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "zamba2-1.2b",
+                                  "qwen3-moe-235b-a22b", "whisper-small",
+                                  "qwen2-vl-2b"])
 def test_train_step_matches_reference(name, monkeypatch):
     """One full train step (remat full, AdamW with clipping) in float32:
     every parameter afterwards, the step's loss and grad norm."""
@@ -399,15 +518,15 @@ def test_train_step_matches_reference(name, monkeypatch):
     kw = dict(peak_lr=3e-4, warmup_steps=1, total_steps=10)
     opt, ref_opt_cfg = optimizer.OptimizerConfig(**kw), \
         ref_opt.OptimizerConfig(**kw)
-    toks = _tokens(cfg, seed=2)
+    batch = _batch(cfg, seed=2)
     ref_state = {"params": _ref_params(name),
                  "opt": ref_opt.init_opt_state(ref_opt_cfg,
                                                _ref_params(name))}
     ref_state, ref_m = jax.jit(ref_ts.make_train_step(ref_cfg, ref_opt_cfg))(
-        ref_state, {"tokens": jnp.asarray(toks)})
+        ref_state, {k: jnp.asarray(v) for k, v in batch.items()})
     state = {"params": model, "opt": optimizer.init_opt_state(
         opt, dict(model.named_parameters()))}
-    state, m = ts.make_train_step(cfg, opt)(state, {"tokens": toks})
+    state, m = ts.make_train_step(cfg, opt)(state, batch)
     np.testing.assert_allclose(float(m["loss"]), float(ref_m["loss"]),
                                rtol=1e-4)
     np.testing.assert_allclose(float(m["grad_norm"]),
@@ -421,9 +540,9 @@ def test_train_step_matches_reference(name, monkeypatch):
 
 def _port_loss_grads(name, **tc):
     cfg, model = _model(name)
-    toks = _tokens(cfg, seed=3, rows=4)
+    batch = _batch(cfg, seed=3, rows=4)
     loss = ts.make_loss_fn(cfg, ts.TrainConfig(**tc))(
-        model, {"tokens": _t(toks)})
+        model, {k: _t(v) for k, v in batch.items()})
     return loss.item(), [g.numpy() for g in torch.autograd.grad(
         loss, list(model.parameters()))]
 
@@ -490,6 +609,20 @@ def test_training_loss_falls():
 
 
 # ----------------------------------------------------------------- launcher
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "whisper-small",
+                                  "qwen2-vl-2b"])
+def test_train_launcher_takes_every_family(arch, capsys):
+    """The pipeline's batches carry each family's inputs to the train
+    step: two logged steps with a finite loss, no checkpoint."""
+    train_launcher.main(["--device", "cpu", "--arch", arch, "--steps", "2",
+                         "--seq-len", "16", "--global-batch", "2",
+                         "--log-every", "1"])
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if "loss=" in line]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
 def test_train_launcher_runs_and_resumes(tmp_path, capsys):
     argv = ["--device", "cpu", "--arch", "zamba2-1.2b", "--seq-len", "16",
             "--global-batch", "2", "--log-every", "1", "--save-every", "2",
