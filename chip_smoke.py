@@ -187,21 +187,48 @@ Phases (any failure ends the script with a non-zero exit):
      launches; each part's prefill
      ms and decode ms a token (CUDA events), tokens/s, peak memory and
      the kernel's share of a prefill (``torch.profiler``), beside the
-     card's name and power limit.
+     card's name and power limit;
+ 10. the main path, part seven: the free-running strategies
+     (``engine_torch.free_run``: the GA, PSO, DE and random search, R =
+     1024 runs x G = 100 generations x P = 20, one budget-scan launch a
+     generation): (a) each on the synthetic GEMM cache (all 10,140
+     configs) with a budget of 0.02 of its total charge, exactly G
+     launches a call, the wall a call (median of 3, synchronised), fresh
+     evaluations a second, the share of runs exhausted and the scan's
+     share of the device time (``torch.profiler``), beside the card's
+     name and power limit; (b) the same call again bit-identical; (c)
+     the same call with ``budget_scan_plain`` patched in for the kernel
+     bit-identical; (d) the invariants of tests/test_engine_jax.py
+     (curves (R, G) and monotone, ending at the spend and best;
+     ``spent_evals`` equal to ``fresh_evals``; the spend within the
+     budget up to the one commit that may cross it; every finite best a
+     valid row whose time it is); (e) each strategy's mean best within
+     3x the spread of 25 runs of the numpy strategy on the same cache
+     and budget; the kernel's device time at (R, P) beside its bound;
+     (f) the GA, PSO and DE on phase 4's hotspot recording (1,104
+     invalid configs of 6,144; the unrecorded rows charged the mean
+     charge), a tenth of its charge, (d)'s invariants; (g) random search
+     with no budget over the whole hotspot space (64 runs x 254
+     generations): 5,040 fresh evaluations a run, the recording's
+     optimum, the spend of every valid row (rtol 1e-10); (h) a call's
+     host synchronisations (``torch.cuda.set_sync_debug_mode``) the same
+     at G and at 2G.
 
 Before phase 5 every recording is checked to let a tuning run end
-(``ends_check``); phases 5, 6, 7, 8 and 9 each fail past a wall-clock
-limit.
+(``ends_check``); phases 5, 6, 7, 8, 9 and 10 each fail past a
+wall-clock limit.
 The budget-scan launches of phases 5-6 are printed by strategy and
 campaign.
 
 Kernel launch counters are set to 0 just before phase 4 and read just
 after phase 6, again just before phase 7's (d) and read just after it,
 again around phase 8's step 1, and around each main path of phase 9
-(each generate, whisper's step 1); each kernel must have launched in
-phases 4-6, flash attention and the SSD exactly once an attention site
-and a Mamba layer in phase 7's (d), 6 and 76 times in phase 8's step,
-and flash attention alone 36, 60, 28 and 4 times in phase 9. The line
+(each generate, whisper's step 1), and again just before phase 10 and
+read just after it; each kernel must have launched in phases 4-6, flash
+attention and the SSD exactly once an attention site and a Mamba layer
+in phase 7's (d), 6 and 76 times in phase 8's step, flash attention
+alone 36, 60, 28 and 4 times in phase 9, and the budget scan alone in
+phase 10, exactly once a generation of each ``free_run`` call. The line
 before the last is the JSON summary of every kernel, its launches those
 of the main paths; the last line is the device record ``{"ok": true,
 "device": {...}}``.
@@ -342,6 +369,20 @@ WHISPER_TRAIN_SEQ, WHISPER_STEPS = 448, 8
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_NEW, FAMILY_MAX_LEN = 4, 1024, 32, 2048
 MOE_LAYERS = 4
 FAMILY_LIMIT_S = 240         # phase 9 fails past this wall-clock limit
+# phase 10: free-running strategies (free_run) at the reference's maxiter
+# and popsize defaults, over phase 3's run count
+FREE_STRATEGIES = ("genetic_algorithm", "pso", "differential_evolution",
+                   "random_search")
+FREE_RUNS, FREE_GENERATIONS, FREE_POP = SCAN_RUNS, 100, 20
+# budgets, as shares of each cache's total charge: on the whole GEMM
+# cache 0.02 (about 200 configs' charge) ends most runs mid-campaign, so
+# the freeze runs; a tenth leaves the GA's runs unspent after 100
+# generations (about 400 fresh configs a run). On the partial hotspot
+# recording a tenth (about 100 evaluations, misses charged the mean)
+FREE_BUDGET_SHARE = 0.02
+HOT_BUDGET_SHARE = 0.1
+FREE_EXHAUST_RUNS = 64       # (g): random search over the whole space
+FREE_RUN_LIMIT_S = 120       # phase 10 fails past this wall-clock limit
 
 
 def fail(msg: str) -> None:
@@ -2849,6 +2890,265 @@ def families(device: str, card: str, limit_s: int) -> int:
         signal.alarm(0)
 
 
+# ---------------------------------------------------------------- phase 10
+def free_invariants(what: str, cache, out: dict, runs: int, G: int,
+                    budget: "float | None") -> None:
+    """tests/test_engine_jax.py's invariants of one ``free_run`` output:
+    shapes, monotone curves ending at the final spend and best, spend
+    equal to fresh evaluations, spend within the budget up to the one
+    commit that may cross it, and every finite best a valid row holding
+    that time."""
+    compiled, cols = cache.space.compiled, cache.columns
+    col_map = cols.rows_for_space(compiled)
+    charge_max = max(float(cols.charge_s.max()),
+                     cache.mean_eval_charge() if (col_map < 0).any()
+                     else 0.0)
+    finite = np.isfinite(out["best_value"])
+    rows = out["best_row"][finite]
+    valid = bool(((rows >= 0) & (rows < compiled.n_valid)).all())
+    at = col_map[rows] if valid else np.array([-1])
+    checks = {
+        "shapes": (out["curve_spent"].shape == (runs, G)
+                   and out["curve_best"].shape == (runs, G)
+                   and all(out[k].shape == (runs,) for k in (
+                       "best_value", "best_row", "spent_seconds",
+                       "spent_evals", "fresh_evals", "exhausted"))),
+        "monotone curves": bool(  # compares, not diffs: inf - inf is nan
+            (out["curve_spent"][:, 1:] >= out["curve_spent"][:, :-1]).all()
+            and (out["curve_best"][:, 1:]
+                 <= out["curve_best"][:, :-1]).all()),
+        "curves end at the outputs": bool(
+            np.array_equal(out["curve_spent"][:, -1], out["spent_seconds"])
+            and np.array_equal(out["curve_best"][:, -1],
+                               out["best_value"])),
+        "spent_evals == fresh_evals": bool(
+            np.array_equal(out["spent_evals"], out["fresh_evals"])),
+        "spend within the budget": budget is None or bool(
+            (out["spent_seconds"] < budget + charge_max).all()),
+        "finite bests are valid rows": valid and bool((at >= 0).all()),
+        "best_value == time_s of best_row": valid and bool(
+            (at >= 0).all()) and bool(np.array_equal(
+                cols.time_s[at], out["best_value"][finite])),
+        "no best, no row": bool((out["best_row"][~finite] == -1).all()),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"phase 10 {what}: invariants fail: {bad}")
+
+
+def numpy_best(cache, name: str, budget: float, repeats: int) -> np.ndarray:
+    """Best values of ``repeats`` runs of the numpy strategy, seeded as
+    tests/test_engine_jax.py seeds them (``random.Random(1000 + i)``)."""
+    from repro_torch.core.budget import Budget
+    from repro_torch.core.runner import SimulationRunner
+    from repro_torch.core.strategies import get_strategy
+    best = []
+    for i in range(repeats):
+        runner = SimulationRunner(cache, Budget(max_seconds=budget),
+                                  engine="numpy")
+        get_strategy(name).run(cache.space, runner, random.Random(1000 + i))
+        best.append(runner.best.value)
+    return np.asarray(best)
+
+
+def count_syncs(fn) -> int:
+    """Host synchronisations of one ``fn()``: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def scan_profile(fn) -> tuple:
+    """``(scan ms, kernels ms, kernel launches)`` of one ``fn()`` on the
+    device, from ``torch.profiler``'s CUDA kernel events; None where the
+    trace holds no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA]
+    if not kern:
+        return None
+    scan = sum(e.device_time_total for e in kern
+               if "budget_scan_kernel" in e.key) / 1e3
+    return (scan, sum(e.device_time_total for e in kern) / 1e3,
+            sum(e.count for e in kern))
+
+
+def same_outputs(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def free_running(device: str, card: str, hot, limit_s: int) -> int:
+    """Phase 10: the free-running strategies (``free_run``) on the card,
+    (a)-(h) of the module docstring. Returns the budget-scan launches of
+    its ``free_run`` calls. Fails past ``limit_s`` seconds of wall
+    clock."""
+    from unittest import mock
+
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.core.engine_torch import strategies as frs
+    time_limit(10, limit_s)
+    try:
+        gemm = synthetic_gemm_cache()
+        R, G, P = FREE_RUNS, FREE_GENERATIONS, FREE_POP
+        budget = float(gemm.columns.charge_s.sum()) * FREE_BUDGET_SHARE
+        print(f"  {card}; GEMM cache {gemm.space.compiled.n_valid} configs, "
+              f"R = {R}, G = {G}, P = {P}, budget {budget:.6f} s "
+              f"({FREE_BUDGET_SHARE} of the total charge)")
+        launches = 0
+
+        def run(cache, name, **kw):
+            nonlocal launches
+            n0 = rp.launches
+            out = frs.free_run(cache, name, device=device, **kw)
+            n = rp.launches - n0
+            if n != kw["generations"]:
+                fail(f"phase 10 {name}: {n} budget-scan launches for "
+                     f"{kw['generations']} generations")
+            launches += n
+            return out
+
+        for name in FREE_STRATEGIES:
+            kw = {"runs": R, "seed": 0, "generations": G, "popsize": P,
+                  "max_seconds": budget}
+            # (a) the full-width run: wall median of 3, synchronised
+            out = run(gemm, name, **kw)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run(gemm, name, **kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            fresh = int(out["fresh_evals"].sum())
+            prof = scan_profile(lambda: run(gemm, name, **kw))
+            print(f"  (a) {name}: wall {wall * 1e3:.2f} ms a call (median "
+                  f"of 3; min {min(walls) * 1e3:.2f}, max "
+                  f"{max(walls) * 1e3:.2f}), {fresh} fresh evaluations, "
+                  f"{fresh / wall:,.0f} a second, exhausted "
+                  f"{float(out['exhausted'].mean()):.4f} of runs, "
+                  f"mean best {float(np.mean(out['best_value'])):.6g} s; "
+                  + ("device time not measured" if prof is None else
+                     f"device: scan {prof[0]:.4f} ms of {prof[1]:.4f} ms "
+                     f"of kernels ({prof[0] / prof[1]:.4f}), {prof[2]} "
+                     f"kernel launches, busy {prof[1] / 1e3 / wall:.4f} "
+                     f"of the wall") + f" [{card}]")
+            free_invariants(f"(d) {name}", gemm, out, R, G, budget)
+            # (b) pinned seed
+            if not same_outputs(out, run(gemm, name, **kw)):
+                fail(f"phase 10 (b) {name}: a pinned seed did not "
+                     f"reproduce bit for bit")
+            # (c) the plain version on this path, on the card
+            with mock.patch.object(frs, "budget_scan", rp.budget_scan_plain):
+                n0 = rp.launches
+                plain = frs.free_run(gemm, name, device=device, **kw)
+                if rp.launches != n0:
+                    fail("phase 10 (c): the plain run launched the kernel")
+            if not same_outputs(out, plain):
+                fail(f"phase 10 (c) {name}: the kernel's run differs from "
+                     f"the plain version's")
+            # (e) statistics against 25 numpy runs
+            ref = numpy_best(gemm, name, budget, REPEATS)
+            spread = float(ref.max() - ref.min()) or 1e-9
+            diff = abs(float(np.mean(out["best_value"])) - float(ref.mean()))
+            print(f"  (b)-(e) {name}: bit-identical to itself and to the "
+                  f"plain scan; invariants hold; mean best "
+                  f"{float(np.mean(out['best_value'])):.6g} against numpy "
+                  f"{float(ref.mean()):.6g} over {REPEATS} runs (spread "
+                  f"{spread:.6g}, |diff| {diff:.6g}, limit 3x spread)")
+            if not np.isfinite(out["best_value"]).all() or diff >= 3 * spread:
+                fail(f"phase 10 (e) {name}: mean best {diff:.6g} from "
+                     f"numpy's, over 3x its spread {spread:.6g}")
+        # the kernel at (R, P) as free_run calls it, timed alone; these
+        # launches time the kernel and are not the main path's
+        main_launches = rp.launches
+        first = {}
+
+        def capture(*args):
+            first.setdefault("args", args)
+            return rp.budget_scan(*args)
+
+        with mock.patch.object(frs, "budget_scan", capture):
+            frs.free_run(gemm, "genetic_algorithm", device=device, runs=R,
+                         seed=0, generations=1, popsize=P,
+                         max_seconds=budget)
+        args = first["args"]
+        got = rp.budget_scan(*args)
+        moved = nbytes(*(a for a in args if isinstance(a, torch.Tensor)),
+                       *got)
+        bound = max(moved / PEAK_BYTES,
+                    int(got[0].sum().item()) / PEAK_F64_FLOPS) * 1e3
+        kernel_ms = kernel_device_ms(lambda: rp.budget_scan(*args),
+                                     "budget_scan_kernel")
+        print(f"  budget_scan {R}x{P} (a generation): kernel "
+              + ("not measured" if kernel_ms is None
+                 else f"{kernel_ms:.4f} ms") + f" on the device "
+              f"(torch.profiler), bound {bound:.6f} ms ({moved / 1e6:.3f} "
+              f"MB moved) [{card}]")
+        rp.launches = main_launches
+        # (f) repair and misses on phase 4's hotspot recording
+        compiled = hot.space.compiled
+        col_map = hot.columns.rows_for_space(compiled)
+        hot_budget = float(hot.columns.charge_s.sum()) * HOT_BUDGET_SHARE
+        print(f"  (f) hotspot recording: {compiled.n_valid} valid of "
+              f"{compiled.cartesian_size} configs, "
+              f"{int((col_map >= 0).sum())} recorded, budget "
+              f"{hot_budget:.6f} s")
+        for name in FREE_STRATEGIES[:3]:
+            out = run(hot, name, runs=R, seed=1, generations=G, popsize=P,
+                      max_seconds=hot_budget)
+            free_invariants(f"(f) {name}", hot, out, R, G, hot_budget)
+            print(f"  (f) {name}: invariants hold; mean fresh "
+                  f"{float(out['fresh_evals'].mean()):.1f}, exhausted "
+                  f"{float(out['exhausted'].mean()):.4f}, mean best "
+                  f"{float(np.mean(out['best_value'])):.6g} s")
+        # (g) exhaustion: random search over the whole space, no budget
+        n = compiled.n_valid
+        G_all = -(-n // P) + 2
+        out = run(hot, "random_search", runs=FREE_EXHAUST_RUNS, seed=2,
+                  generations=G_all, popsize=P)
+        charge = np.where(col_map >= 0, hot.columns.charge_s[col_map],
+                          hot.mean_eval_charge())
+        ok = (bool((out["fresh_evals"] == n).all())
+              and bool((out["best_value"] == hot.optimum).all())
+              and bool(np.allclose(out["spent_seconds"], charge.sum(),
+                                   rtol=1e-10, atol=0.0)))
+        print(f"  (g) random search, {FREE_EXHAUST_RUNS} runs x {G_all} "
+              f"generations: fresh {sorted(set(out['fresh_evals'].tolist()))} "
+              f"of {n}, best {sorted(set(out['best_value'].tolist()))} (optimum "
+              f"{hot.optimum}), spend {float(out['spent_seconds'][0])!r} "
+              f"against {float(charge.sum())!r}")
+        if not ok:
+            fail("phase 10 (g): random search did not exhaust the space "
+                 "exactly")
+        # (h) host synchronisations of a call, at G and at 2G
+        syncs = {g: count_syncs(lambda g=g: run(
+            gemm, "genetic_algorithm", runs=R, seed=0, generations=g,
+            popsize=P, max_seconds=budget)) for g in (G, 2 * G)}
+        print(f"  (h) host synchronisations a call: {syncs[G]} at G = {G}, "
+              f"{syncs[2 * G]} at G = {2 * G}")
+        if syncs[G] != syncs[2 * G] or not syncs[G]:
+            fail(f"phase 10 (h): synchronisations depend on the "
+                 f"generations (or were not counted): {syncs}")
+        return launches
+    finally:
+        signal.alarm(0)
+
+
 # ----------------------------------------------------------------- driver
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2970,7 +3270,26 @@ def main() -> int:
     launches["flash_attention"] += families(device, smi.stdout.strip(),
                                             FAMILY_LIMIT_S)
     print(f"  [phase 9: {time.perf_counter() - t0:.1f} s]")
-    print(f"  launches on the main paths (phases 4-6, 7, 8 and 9): "
+    print(f"[10] main path: free-running {', '.join(FREE_STRATEGIES)} on "
+          f"the card, {FREE_RUNS} runs x {FREE_GENERATIONS} generations")
+    t0 = time.perf_counter()
+    for mod in ALL_KERNELS.values():
+        mod.launches = 0
+    rp.launches = 0
+    # the recording as phase 4 made it, over the hub's whole space (a
+    # cache loaded from its file knows only the recorded configs)
+    free_launches = free_running(device, smi.stdout.strip(),
+                                 caches["hotspot"], FREE_RUN_LIMIT_S)
+    phase10 = {name: mod.launches for name, mod in ALL_KERNELS.items()}
+    phase10["budget_scan"] = rp.launches
+    print(f"  launches in phase 10: {phase10}")
+    if rp.launches != free_launches or any(
+            n for name, n in phase10.items() if name != "budget_scan"):
+        fail(f"phase 10 launched other than its free_run calls' budget "
+             f"scans ({free_launches}): {phase10}")
+    launches["budget_scan"] += rp.launches
+    print(f"  [phase 10: {time.perf_counter() - t0:.1f} s]")
+    print(f"  launches on the main paths (phases 4-6, 7, 8, 9 and 10): "
           f"{launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]

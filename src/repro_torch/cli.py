@@ -15,6 +15,8 @@ Port of ``src/repro/cli.py``, with the subcommands of this slice's path:
               Eq. 4), journaled for resume
   report      inspect a campaign journal: ranking, optimal-vs-average
               improvement, wall-clock parallelism
+  lint        parity-lint: determinism and pickle-safety static analysis
+              of the port (``repro_torch.analysis``)
 
 Flags mirror ``repro``'s flags of the same names, with one difference:
 ``--device`` names where the work runs (``cuda``, the default, or
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import os
 import sys
 import time
 from typing import Sequence
@@ -267,6 +270,68 @@ def cmd_report(args) -> int:
     return 0
 
 
+PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
+DEFAULT_BASELINE = os.path.join(PACKAGE_DIR, "analysis",
+                                "parity-lint-baseline.json")
+
+
+def cmd_lint(args) -> int:
+    """parity-lint: the determinism/pickle-safety static-analysis gate
+    (``repro_torch.analysis``; ``--list-rules`` prints the catalogue).
+    Defaults: the package itself and its baseline."""
+    import json as _json
+
+    from .analysis import baseline as _baseline
+    from .analysis import default_rules, lint_paths
+    from .analysis.report import rule_catalogue, to_json, to_text
+
+    rules = default_rules()
+    if args.list_rules:
+        print(rule_catalogue(rules))
+        return 0
+    paths = args.paths or [PACKAGE_DIR]
+    for p in paths:
+        if not os.path.exists(p):
+            raise SystemExit(f"error: no such path: {p}")
+    baseline_path = args.baseline
+    if baseline_path is None and not args.no_baseline \
+            and os.path.exists(DEFAULT_BASELINE):
+        baseline_path = DEFAULT_BASELINE
+    if args.no_baseline or args.write_baseline:
+        baseline_path = None
+    result = lint_paths(paths, baseline=baseline_path, rules=rules)
+    if args.write_baseline:
+        out = args.baseline or DEFAULT_BASELINE
+        lines: dict = {}
+
+        def line_text(f):
+            if f.path not in lines:
+                for root in paths:
+                    cand = os.path.join(root, f.path)
+                    if os.path.exists(cand):
+                        with open(cand, "r", encoding="utf-8") as fh:
+                            lines[f.path] = fh.read().splitlines()
+                        break
+                else:
+                    lines[f.path] = []
+            text = lines[f.path]
+            return text[f.line - 1] if 1 <= f.line <= len(text) else ""
+
+        n = _baseline.write(out, result.findings, line_text)
+        print(f"wrote {n} baseline entr{'y' if n == 1 else 'ies'} "
+              f"covering {len(result.findings)} finding(s) -> {out}")
+        return 0
+    if args.report:
+        with open(args.report, "w", encoding="utf-8") as f:
+            _json.dump(to_json(result, rules), f, indent=2)
+            f.write("\n")
+    if args.format == "json":
+        print(_json.dumps(to_json(result, rules), indent=2))
+    else:
+        print(to_text(result))
+    return 0 if result.ok else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="repro_torch",
@@ -392,6 +457,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="path to a campaign JSONL journal")
     pr.add_argument("--top", type=int, default=10)
     pr.set_defaults(fn=cmd_report)
+
+    pl = sub.add_parser("lint", help="parity-lint: determinism & "
+                        "pickle-safety static analysis of the port")
+    pl.add_argument("paths", nargs="*", metavar="PATH",
+                    help="files/directories to lint (default: the "
+                         "repro_torch package, src/repro_torch)")
+    pl.add_argument("--baseline", default=None, metavar="PATH",
+                    help="baseline of grandfathered findings (default: "
+                         "src/repro_torch/analysis/parity-lint-baseline.json)")
+    pl.add_argument("--no-baseline", action="store_true",
+                    help="ignore any baseline file: report everything")
+    pl.add_argument("--write-baseline", action="store_true",
+                    help="write the current findings as the new baseline "
+                         "(to --baseline or the default path) and exit 0")
+    pl.add_argument("--format", choices=("text", "json"), default="text",
+                    help="stdout format (json is the machine-readable "
+                         "report, incl. the rule catalogue)")
+    pl.add_argument("--report", default=None, metavar="PATH",
+                    help="also write the JSON report to PATH, regardless "
+                         "of --format")
+    pl.add_argument("--list-rules", action="store_true",
+                    help="print the rule catalogue (invariant + runtime "
+                         "oracle per rule) and exit")
+    pl.set_defaults(fn=cmd_lint)
     return p
 
 

@@ -1,7 +1,7 @@
 """Replay engine on the card (the simulator's device half).
 
-Port of ``src/repro/core/engine_jax/__init__.py``, replay-from-log only:
-``ReplayEngine`` behind ``SimulationRunner(engine="torch")``,
+Port of ``src/repro/core/engine_jax/__init__.py``: ``ReplayEngine`` behind
+``SimulationRunner(engine="torch")``,
 ``replay_many`` for fused multi-run workloads, and ``drive_fused``
 (``campaign.py``), which drives whole campaigns of array-native strategies
 (``FUSED_STRATEGIES``) with one budget-scan launch a segment of all of a
@@ -16,7 +16,13 @@ which stays the parity oracle.
 Unlike the reference, nothing here degrades: a runner asked for the torch
 engine on the card either launches the kernel or raises. On the CPU
 (``device="cpu"``) the same code runs the kernel's plain PyTorch version.
-Free-running strategies wait for a later slice.
+
+Free-running strategies (``strategies.py``: ``free_run`` over
+``FREE_RUN_STRATEGIES``, the GA, PSO, DE and random search) step R runs
+through G generations with one budget-scan launch a generation, over the
+compiled space's device tables (``SpaceTables``). They are only
+statistically equivalent to the numpy strategies; pinned seeds reproduce
+bit for bit on one device.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ from .campaign import FUSED_STRATEGIES, FusedRun  # noqa: F401
 from .campaign import drive_fused, fuse_reason  # noqa: F401
 from .replay import (ReplayEngine, budget_scan, budget_scan_plain,  # noqa: F401
                      replay_many)
-from .tables import ReplayTables, replay_tables  # noqa: F401
+from .strategies import FREE_RUN_STRATEGIES, free_run  # noqa: F401
+from .tables import (ReplayTables, SpaceTables, replay_tables,  # noqa: F401
+                     space_tables)
 
 
 def engine_available() -> bool:

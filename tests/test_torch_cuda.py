@@ -1181,3 +1181,85 @@ def test_tiny_train_step_on_card_matches_cpu(card, name, remat,
     for (name_, p), q in zip(gpu["params"].named_parameters(),
                              cpu["params"].parameters()):
         assert (p.detach().cpu() - q.detach()).abs().max() < 3e-5, name_
+
+
+# ------------------------------------------------------------ free running
+# ``engine_torch.free_run`` on the card: one budget-scan launch a
+# generation, pinned seeds bit for bit, and the kernel's run bit-identical
+# to the same run with the plain scan patched in (no tolerance)
+FREE_NAMES = ("genetic_algorithm", "pso", "differential_evolution",
+              "random_search")
+
+
+def _free_kw(cache, runs=16, generations=12, share=0.2):
+    total = float(cache.columns.charge_s.sum())
+    return {"runs": runs, "seed": 3, "generations": generations,
+            "max_seconds": total * share}
+
+
+@pytest.mark.parametrize("name", FREE_NAMES)
+def test_free_run_on_card_one_launch_a_generation(card, name):
+    from repro_torch.core.engine_torch import replay as rp
+    cache = _cache()
+    kw = _free_kw(cache)
+    before = rp.launches
+    a = engine_torch.free_run(cache, name, device=card, **kw)
+    assert rp.launches - before == kw["generations"]
+    b = engine_torch.free_run(cache, name, device=card, **kw)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+    assert a["curve_spent"].shape == (kw["runs"], kw["generations"])
+    assert np.array_equal(a["spent_evals"], a["fresh_evals"])
+
+
+@pytest.mark.parametrize("name", FREE_NAMES)
+def test_free_run_on_card_matches_plain_scan(card, name):
+    from unittest import mock
+
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.core.engine_torch import strategies as frs
+    cache = _cache()
+    kw = _free_kw(cache, share=0.1)
+    out = frs.free_run(cache, name, device=card, **kw)
+    with mock.patch.object(frs, "budget_scan", rp.budget_scan_plain):
+        before = rp.launches
+        plain = frs.free_run(cache, name, device=card, **kw)
+        assert rp.launches == before
+    for k in out:
+        assert np.array_equal(out[k], plain[k]), k
+    assert out["exhausted"].any()
+
+
+@pytest.mark.parametrize("name", FREE_NAMES[:3])
+def test_free_run_on_card_repairs_invalid_configs(card, name):
+    """The hotspot space (5,040 valid of 6,144), half of it recorded: the
+    repair path and the misses' mean charge on the card."""
+    space = hs.space()
+    rng = np.random.default_rng(9)
+    results = {}
+    for i, conf in enumerate(space.valid_configs):
+        if rng.random() < 0.5:
+            t = float(np.exp(rng.normal(-4.0, 1.0)))
+            results[space.config_id(conf)] = CachedResult("ok", t, (t,), t)
+    cache = CacheFile("hotspot", "synth", space, results)
+    kw = _free_kw(cache, runs=32, generations=20, share=0.05)
+    out = engine_torch.free_run(cache, name, device=card, **kw)
+    compiled = cache.space.compiled
+    finite = np.isfinite(out["best_value"])
+    cols = cache.columns.rows_for_space(compiled)[out["best_row"][finite]]
+    assert finite.any() and (cols >= 0).all()
+    assert np.array_equal(cache.columns.time_s[cols],
+                          out["best_value"][finite])
+    assert (np.diff(out["curve_spent"], axis=1) >= 0).all()
+
+
+def test_free_run_on_card_random_search_exhausts(card):
+    cache = _cache()
+    n = cache.space.compiled.n_valid
+    out = engine_torch.free_run(cache, "random_search", device=card, runs=8,
+                                seed=2, popsize=20,
+                                generations=-(-n // 20) + 2)
+    assert (out["fresh_evals"] == n).all()
+    assert np.allclose(out["spent_seconds"],
+                       float(cache.columns.charge_s.sum()), rtol=1e-10)
+    assert (out["best_value"] == cache.optimum).all()
