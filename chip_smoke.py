@@ -212,10 +212,45 @@ Phases (any failure ends the script with a non-zero exit):
      generations): 5,040 fresh evaluations a run, the recording's
      optimum, the spend of every valid row (rtol 1e-10); (h) a call's
      host synchronisations (``torch.cuda.set_sync_debug_mode``) the same
-     at G and at 2G.
+     at G and at 2G;
+ 11. the main path, part eight: the FAIR hub, the ConfigHub lookup
+     service and the scenario layer, on a fresh root under
+     ``chiprun_out/`` (removed at the end): (a) ``Hub.build`` of the four
+     hub kernels through the cost model on tpu_v5e and tpu_lite_b at
+     their hub sizes (8 entries) plus flash attention's and the SSD's
+     smoke recordings live on the card, every sha256 verified, the build's
+     wall; flash attention and the SSD launched exactly as often as
+     their recordings ran them (one warm-up and ``repeats`` launches an
+     ok config), the hub kernels not at all; (b) ``run_fleet`` of the
+     four hub kernels on the card's label, runner live, 32 evaluations
+     of 3 repeats a scenario: both shapes (hub size and smoke) recorded
+     through the hand-written kernels and registered, each kernel
+     launched exactly as often as its recordings ran it; a second fleet
+     records nothing (every scenario skipped); the coverage marks the 8
+     scenarios recorded and the gate of the report against itself
+     passes; (c) lookups: gemm on the card's label at the hub size
+     exact, with ``disk_loads`` flat after the first hit; the median of
+     10,000 warmed exact hits against the naive scan over the cache's
+     results plus the config decode, on the card's entry and on
+     gemm@tpu_v5e (10,140 configs), best configs equal; gemm at m=2048
+     on the card a transfer from the 4096^3 entry; gemm on tpu_v4 at the
+     hub size a cross-device transfer (confidence 2/3) and at 32768^3 a
+     modeled answer equal to ``best_modeled``; one ``serve_requests``
+     array line answering each request; (d) warm start on a second,
+     empty root: dedispersion on the card's label answers ``warming``,
+     the flight (live on the card, on its own thread) is joined and the
+     same lookup answers ``exact``, dedispersion launched exactly as
+     often as the flight's recording ran it; (e) ``Tuner(hub_root=root,
+     device="cuda").simulate`` of the GA over the hub's train split (the
+     four tpu_v5e entries) through the torch engine and the budget scan,
+     bit-identical to the numpy engine, its budget-scan launches
+     printed; (f) ``python -m repro_torch`` as subprocesses: ``hub
+     verify`` exits 0, ``lookup`` of gemm on the card's label exits 0, a
+     lookup with nothing recorded and nothing to model exits 3,
+     ``scenarios --out`` then ``scenarios --gate`` exit 0.
 
 Before phase 5 every recording is checked to let a tuning run end
-(``ends_check``); phases 5, 6, 7, 8, 9 and 10 each fail past a
+(``ends_check``); phases 5, 6, 7, 8, 9, 10 and 11 each fail past a
 wall-clock limit.
 The budget-scan launches of phases 5-6 are printed by strategy and
 campaign.
@@ -223,12 +258,15 @@ campaign.
 Kernel launch counters are set to 0 just before phase 4 and read just
 after phase 6, again just before phase 7's (d) and read just after it,
 again around phase 8's step 1, and around each main path of phase 9
-(each generate, whisper's step 1), and again just before phase 10 and
-read just after it; each kernel must have launched in phases 4-6, flash
-attention and the SSD exactly once an attention site and a Mamba layer
-in phase 7's (d), 6 and 76 times in phase 8's step, flash attention
-alone 36, 60, 28 and 4 times in phase 9, and the budget scan alone in
-phase 10, exactly once a generation of each ``free_run`` call. The line
+(each generate, whisper's step 1), again just before phase 10 and read
+just after it, and around each of phase 11's (a), (b), (d) and (e);
+each kernel must have launched in phases 4-6, flash attention and the
+SSD exactly once an attention site and a Mamba layer in phase 7's (d),
+6 and 76 times in phase 8's step, flash attention alone 36, 60, 28 and
+4 times in phase 9, the budget scan alone in phase 10, exactly once a
+generation of each ``free_run`` call, and in phase 11 each kernel
+exactly as often as its live recordings ran it (the budget scan alone
+in (e)). The line
 before the last is the JSON summary of every kernel, its launches those
 of the main paths; the last line is the device record ``{"ok": true,
 "device": {...}}``.
@@ -383,6 +421,15 @@ FREE_BUDGET_SHARE = 0.02
 HOT_BUDGET_SHARE = 0.1
 FREE_EXHAUST_RUNS = 64       # (g): random search over the whole space
 FREE_RUN_LIMIT_S = 120       # phase 10 fails past this wall-clock limit
+# phase 11: the hub, the lookup service and the scenario layer
+HUB_LIMIT_S = 300            # phase 11 fails past this wall-clock limit
+HUB_MODELS = ("tpu_v5e", "tpu_lite_b")  # device models of (a)'s build
+FLEET_EVALS, FLEET_REPEATS = 32, 3
+WARM_EVALS = 16
+LOOKUP_HITS = 10_000         # warmed exact hits timed in (c)
+NAIVE_SCANS = {"card": 1000, "tpu_v5e": 100}  # naive scans timed in (c)
+FAR_GEMM = {"m": 32768, "n": 32768, "k": 32768}  # no donor within 0.3
+HUB_SCORE_REPEATS = 25       # (e): the paper's repeats
 
 
 def fail(msg: str) -> None:
@@ -3150,6 +3197,337 @@ def free_running(device: str, card: str, hot, limit_s: int) -> int:
 
 
 # ----------------------------------------------------------------- driver
+# ---------------------------------------------------------------- phase 11
+def reset_launches() -> None:
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.kernels import ALL_KERNELS
+    for mod in ALL_KERNELS.values():
+        mod.launches = 0
+    rp.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.core.engine_torch import replay as rp
+    from repro_torch.kernels import ALL_KERNELS
+    out = {name: mod.launches for name, mod in ALL_KERNELS.items()}
+    out["budget_scan"] = rp.launches
+    return out
+
+
+def recorded_calls(cache) -> int:
+    """Kernel calls a live recording made: one warm-up and one a repeat
+    for every ok config (a refused config never launched)."""
+    return sum(1 + len(r.times_s) for r in cache.results.values()
+               if r.status == "ok")
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    want = {name: want.get(name, 0) for name in got}
+    print(f"  {what}: launches {got}")
+    if got != want:
+        fail(f"phase 11 {what}: launches {got}, recordings ran {want}")
+
+
+def median_us(fn, n: int) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    return statistics.median(times) / 1e3
+
+
+def naive_best(cache):
+    """The answer without the service: a scan over the cache's results
+    plus the config decode (the reference's ``hub_lookup`` yardstick)."""
+    best = key = None
+    for k, r in cache.results.items():
+        if r.status == "ok" and (best is None or r.time_s < best):
+            best, key = r.time_s, k
+    return cache.space.as_dict(cache.space.config_from_id(key)), best
+
+
+def hub_build(root: pathlib.Path, device: str, card: str, label: str):
+    """Phase 11 (a)."""
+    from repro_torch.api import Hub
+    from repro_torch.hub import HubError, storage
+    reset_launches()
+    t0 = time.perf_counter()
+    hub = Hub.build(str(root), progress=print, device=device,
+                    devices=HUB_MODELS)
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    try:
+        hub.verify()
+    except HubError as e:
+        fail(f"phase 11 (a): {e}")
+    files = hub.manifest["files"]
+    want_keys = sorted([f"{k}@{d}" for k in ("dedispersion", "convolution",
+                                              "hotspot", "gemm")
+                        for d in HUB_MODELS]
+                       + [f"flash_attention@{label}", f"ssd@{label}"])
+    if sorted(files) != want_keys:
+        fail(f"phase 11 (a): the hub holds {sorted(files)}")
+    print(f"  {card}; (a) Hub.build: {len(files)} entries, every sha256 "
+          f"verified, {wall:.2f} s wall (manifest build_wall_seconds "
+          f"{hub.manifest['build_wall_seconds']:.2f})")
+    check_launches("(a) build", got, {
+        k: recorded_calls(storage.load_cache(str(root), f"{k}@{label}"))
+        for k in ("flash_attention", "ssd")})
+    return hub, wall
+
+
+def hub_fleet(root: pathlib.Path, device: str, card: str, label: str):
+    """Phase 11 (b)."""
+    from repro_torch.hub import storage
+    from repro_torch.kernels import HUB_KERNELS
+    from repro_torch.scenarios import (ScenarioMatrix, gate_recorded,
+                                       run_fleet)
+    from repro_torch.service import ConfigHub
+    matrix = ScenarioMatrix(kernels=tuple(HUB_KERNELS), devices=(label,))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_fleet(str(root), matrix=matrix, runner="live",
+                    max_evals=FLEET_EVALS, repeats=FLEET_REPEATS,
+                    device=device, progress=print)
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    if len(out.recorded) != 2 * len(HUB_KERNELS):
+        fail(f"phase 11 (b): the fleet recorded {out.recorded}")
+    files = storage.read_manifest(str(root))["files"]
+    want = {}
+    for key in files:
+        kernel, dev, _ = storage.split_key(key)
+        if dev == label and kernel in HUB_KERNELS:
+            cache = storage.load_cache(str(root), key)
+            want[kernel] = want.get(kernel, 0) + recorded_calls(cache)
+            ok = [r.time_s for r in cache.results.values()
+                  if r.status == "ok"]
+            print(f"  {key}: {len(cache.results)} configs, {len(ok)} ok, "
+                  f"best {min(ok) * 1e3:.4f} ms")
+    print(f"  {card}; (b) run_fleet: {len(out.recorded)} scenarios recorded "
+          f"live in {wall:.2f} s")
+    check_launches("(b) fleet", got, want)
+    again = run_fleet(str(root), matrix=matrix, runner="live",
+                      max_evals=FLEET_EVALS, repeats=FLEET_REPEATS,
+                      device=device)
+    if again.recorded or sorted(again.skipped) != sorted(out.recorded):
+        fail(f"phase 11 (b): a second fleet did not skip everything: "
+             f"{again.to_json()}")
+    report = matrix.coverage(ConfigHub(str(root)), with_best=True)
+    tiers = [r.tier for r in report.rows]
+    if tiers != ["recorded"] * len(out.recorded):
+        fail(f"phase 11 (b): coverage tiers {tiers}")
+    gate = gate_recorded(report.recorded_best(), report.recorded_best())
+    if gate:
+        fail(f"phase 11 (b): the gate failed against itself: {gate}")
+    print(f"  (b) second fleet: {len(again.skipped)} skipped, 0 recorded; "
+          f"coverage {report.counts()}; gate against itself passes")
+    return wall
+
+
+def hub_lookups(root: pathlib.Path, card: str, label: str) -> dict:
+    """Phase 11 (c)."""
+    from repro_torch.cli import serve_requests
+    from repro_torch.hub import storage
+    from repro_torch.scenarios import MODELED_CONFIDENCE, best_modeled
+    from repro_torch.service import ConfigHub
+    svc = ConfigHub(str(root))
+    hub_size = storage.hub_default_problem("gemm")
+    r = svc.lookup("gemm", None, label)
+    loads = svc.disk_loads
+    if r.status != "exact" or r.source != f"gemm@{label}":
+        fail(f"phase 11 (c): gemm on {label}: {r.status} from {r.source}")
+    if svc.lookup("gemm", hub_size, label).status != "exact" \
+            or svc.disk_loads != loads:
+        fail("phase 11 (c): an explicit hub size missed or touched disk")
+    timings = {}
+    for name, device in (("card", label), ("tpu_v5e", "tpu_v5e")):
+        cache = storage.load_cache(str(root), f"gemm@{device}")
+        hit = svc.lookup("gemm", None, device)
+        naive_cfg, naive_val = naive_best(cache)
+        if (hit.best_config, hit.best_value) != (naive_cfg, naive_val):
+            fail(f"phase 11 (c): gemm@{device}: the service's best "
+                 f"{hit.best_config} differs from the naive scan's "
+                 f"{naive_cfg}")
+        loads = svc.disk_loads
+        hit_us = median_us(lambda: svc.lookup("gemm", None, device),
+                           LOOKUP_HITS)
+        scan_us = median_us(lambda: naive_best(cache), NAIVE_SCANS[name])
+        if svc.disk_loads != loads:
+            fail("phase 11 (c): warmed exact hits touched disk")
+        timings[name] = (hit_us, scan_us)
+        print(f"  {card}; (c) gemm@{device} ({len(cache.results)} configs):"
+              f" exact hit median {hit_us:.2f} us over {LOOKUP_HITS} hits,"
+              f" naive scan + decode {scan_us:.2f} us over "
+              f"{NAIVE_SCANS[name]} ({scan_us / hit_us:.1f}x); disk loads "
+              f"{svc.disk_loads}, flat while timed")
+    t = svc.lookup("gemm", {"m": 2048}, label)
+    if t.status != "transfer" or t.source != f"gemm@{label}":
+        fail(f"phase 11 (c): gemm m=2048 on {label}: {t.status} from "
+             f"{t.source}")
+    x = svc.lookup("gemm", None, "tpu_v4")
+    if x.status != "transfer" or x.confidence != 1.0 / 1.5:
+        fail(f"phase 11 (c): gemm on tpu_v4: {x.status} ({x.confidence})")
+    m = svc.lookup("gemm", FAR_GEMM, "tpu_v4")
+    mb = best_modeled("gemm", {**hub_size, **FAR_GEMM}, "tpu_v4")
+    if m.status != "modeled" or m.confidence != MODELED_CONFIDENCE or (
+            m.best_config, m.best_value) != (mb.config, mb.value):
+        fail(f"phase 11 (c): gemm {FAR_GEMM} on tpu_v4: {m.status}, "
+             f"{m.best_config} against best_modeled's {mb.config}")
+    print(f"  (c) gemm m=2048 on {label}: transfer from {t.source} "
+          f"(distance {t.distance:.4f}, confidence {t.confidence:.4f}); "
+          f"gemm on tpu_v4: transfer from {x.source} (confidence "
+          f"{x.confidence:.4f}); gemm 32768^3 on tpu_v4: modeled "
+          f"{m.best_config}, {m.best_value * 1e3:.4f} ms "
+          f"({m.model['dominant']}-bound), equal to best_modeled")
+    reqs = [{"kernel": "gemm", "device": label},
+            {"kernel": "gemm", "problem": {"m": 2048}, "device": label},
+            {"kernel": "gemm", "problem": FAR_GEMM, "device": "tpu_v4"},
+            {"kernel": "no_such_kernel", "device": label}]
+    answers = list(serve_requests(svc, [json.dumps(reqs)]))
+    statuses = [a.get("status") for a in answers]
+    if statuses != ["exact", "transfer", "modeled", "cold"]:
+        fail(f"phase 11 (c): serve_requests answered {answers}")
+    print(f"  (c) serve_requests: one array line of {len(reqs)} requests "
+          f"-> {statuses}; lookups {svc.stats()['lookups']}")
+    return timings
+
+
+def hub_warm_start(root2: pathlib.Path, device: str, card: str,
+                   label: str) -> None:
+    """Phase 11 (d)."""
+    from repro_torch.hub import storage
+    from repro_torch.service import ConfigHub
+    storage.write_manifest(str(root2), storage.new_manifest())
+    svc = ConfigHub(str(root2), warm_start={"max_evals": WARM_EVALS,
+                                            "device": device})
+    reset_launches()
+    t0 = time.perf_counter()
+    r = svc.lookup("dedispersion", None, label)
+    if r.status != "warming":
+        fail(f"phase 11 (d): a cold dedispersion lookup answered "
+             f"{r.status}")
+    flight = svc.warm_start.ensure("dedispersion", label, r.problem)
+    if not flight.join(120.0) or flight.error is not None:
+        fail(f"phase 11 (d): the warm-start flight failed: {flight.error}")
+    wall = time.perf_counter() - t0
+    got = read_launches()
+    r2 = svc.lookup("dedispersion", None, label)
+    if r2.status != "exact" or svc.warm_start.launches != 1:
+        fail(f"phase 11 (d): after the flight: {r2.status}, "
+             f"{svc.warm_start.launches} flights")
+    cache = storage.load_cache(str(root2), r2.source)
+    print(f"  {card}; (d) warm start: warming (confidence "
+          f"{r.confidence:.3f}), the flight recorded {len(cache.results)} "
+          f"configs live in {wall:.2f} s, then exact from {r2.source} "
+          f"({r2.best_value * 1e3:.4f} ms)")
+    check_launches("(d) warm start", got,
+                   {"dedispersion": recorded_calls(cache)})
+
+
+def hub_scoring(root: pathlib.Path, device: str, card: str) -> int:
+    """Phase 11 (e); returns its budget-scan launches."""
+    from repro_torch.api import Tuner
+    with Tuner(hub_root=str(root), engine="vectorized",
+               repeats=HUB_SCORE_REPEATS, device=device) as numpy_tuner:
+        ends_check([s.cache for s in numpy_tuner.scorers])
+        t0 = time.perf_counter()
+        numpy_run = numpy_tuner.simulate("genetic_algorithm")
+        numpy_wall = time.perf_counter() - t0
+    reset_launches()
+    with Tuner(hub_root=str(root), repeats=HUB_SCORE_REPEATS,
+               device=device) as tuner:
+        t0 = time.perf_counter()
+        run = tuner.simulate("genetic_algorithm")
+        torch_wall = time.perf_counter() - t0
+    got = read_launches()
+    if run.score != numpy_run.score or run.report.per_space_score != \
+            numpy_run.report.per_space_score:
+        fail(f"phase 11 (e): torch engine {run.report.per_space_score} "
+             f"against numpy {numpy_run.report.per_space_score}")
+    if not got["budget_scan"] or any(n for k, n in got.items()
+                                     if k != "budget_scan"):
+        fail(f"phase 11 (e): launches {got}")
+    print(f"  {card}; (e) Tuner(hub_root).simulate GA x "
+          f"{HUB_SCORE_REPEATS} over {sorted(run.report.per_space_score)}:"
+          f" score {run.score!r} on both engines, bit-identical; torch "
+          f"{torch_wall:.2f} s (drive {run.fuse}), numpy {numpy_wall:.2f} "
+          f"s; budget-scan launches {got['budget_scan']}")
+    return got["budget_scan"]
+
+
+def hub_verbs(root: pathlib.Path, device: str, card: str,
+              label: str) -> None:
+    """Phase 11 (f)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cov = root / "coverage.json"
+    cases = [
+        (["hub", "verify", "--root", str(root)], 0),
+        (["lookup", "--hub-root", str(root), "--kernel", "gemm",
+          "--device", label, "--json"], 0),
+        (["lookup", "--hub-root", str(root), "--kernel", "no_such_kernel",
+          "--device", label], 3),
+        (["scenarios", "--hub-root", str(root), "--device", device,
+          "--out", str(cov)], 0),
+        (["scenarios", "--hub-root", str(root), "--device", device,
+          "--gate", str(cov)], 0),
+    ]
+    for argv, want in cases:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "repro_torch", *argv],
+                              env=env, cwd=ROOT, capture_output=True,
+                              text=True, timeout=120)
+        wall = time.perf_counter() - t0
+        tail = (proc.stdout.strip().splitlines() or [""])[-1]
+        shown = " ".join(a.replace(str(root), "<root>") for a in argv)
+        print(f"  (f) repro_torch {shown}: exit {proc.returncode} in "
+              f"{wall:.2f} s: {tail[:160]}")
+        if proc.returncode != want:
+            fail(f"phase 11 (f): {argv} exited {proc.returncode}, not "
+                 f"{want}: {proc.stderr[-2000:]}")
+        if argv[0] == "lookup" and want == 0 and \
+                json.loads(proc.stdout)["status"] != "exact":
+            fail(f"phase 11 (f): lookup answered {proc.stdout}")
+    print(f"  {card}; (f) the verbs as subprocesses: all exits as expected")
+
+
+def hub_phase(device: str, card: str, limit_s: int) -> dict:
+    """Phase 11: the hub, the lookup service and the scenario layer on the
+    card, (a)-(f) of the module docstring. Returns the launches of its
+    main paths. Fails past ``limit_s`` seconds of wall clock."""
+    from repro_torch.cuda import device_label
+    label = device_label(device)
+    base = ROOT / "chiprun_out"
+    base.mkdir(exist_ok=True)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="hub-", dir=base))
+    root2 = pathlib.Path(tempfile.mkdtemp(prefix="hub-warm-", dir=base))
+    time_limit(11, limit_s)
+    launches = {}
+
+    def add(got: dict) -> None:
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    try:
+        print(f"  {card}; label {label}; roots {root.name}, {root2.name}")
+        hub_build(root, device, card, label)
+        add(read_launches())
+        hub_fleet(root, device, card, label)
+        add(read_launches())
+        hub_lookups(root, card, label)
+        hub_warm_start(root2, device, card, label)
+        add(read_launches())
+        hub_scoring(root, device, card)
+        add(read_launches())
+        hub_verbs(root, device, card, label)
+    finally:
+        signal.alarm(0)
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(root2, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -3162,7 +3540,6 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import cuda
     from repro_torch.core.engine_torch import replay as rp
-    from repro_torch.kernels import ALL_KERNELS
 
     device = "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3203,9 +3580,7 @@ def main() -> int:
 
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for mod in ALL_KERNELS.values():
-        mod.launches = 0
-    rp.launches = 0
+    reset_launches()
     print("[4] main path: live recordings of the four hub kernels at their "
           "hub sizes and of the two framework kernels at full model width")
     caches, paths = {}, {}
@@ -3243,8 +3618,7 @@ def main() -> int:
         loaded, device, HYPERTUNE_REPEATS, out_dir,
         max(1, HYPERTUNE_LIMIT_S - int(time.perf_counter() - t0)))
     print(f"  [phase 6: {time.perf_counter() - t0:.1f} s]")
-    launches = {name: mod.launches for name, mod in ALL_KERNELS.items()}
-    launches["budget_scan"] = rp.launches
+    launches = read_launches()
     print(f"  launches on the main path of phases 4-6: {launches}")
     print(f"  budget-scan launches of phases 5-6 by strategy: {split}")
     if not all(launches.values()):
@@ -3273,15 +3647,12 @@ def main() -> int:
     print(f"[10] main path: free-running {', '.join(FREE_STRATEGIES)} on "
           f"the card, {FREE_RUNS} runs x {FREE_GENERATIONS} generations")
     t0 = time.perf_counter()
-    for mod in ALL_KERNELS.values():
-        mod.launches = 0
-    rp.launches = 0
+    reset_launches()
     # the recording as phase 4 made it, over the hub's whole space (a
     # cache loaded from its file knows only the recorded configs)
     free_launches = free_running(device, smi.stdout.strip(),
                                  caches["hotspot"], FREE_RUN_LIMIT_S)
-    phase10 = {name: mod.launches for name, mod in ALL_KERNELS.items()}
-    phase10["budget_scan"] = rp.launches
+    phase10 = read_launches()
     print(f"  launches in phase 10: {phase10}")
     if rp.launches != free_launches or any(
             n for name, n in phase10.items() if name != "budget_scan"):
@@ -3289,11 +3660,22 @@ def main() -> int:
              f"scans ({free_launches}): {phase10}")
     launches["budget_scan"] += rp.launches
     print(f"  [phase 10: {time.perf_counter() - t0:.1f} s]")
-    print(f"  launches on the main paths (phases 4-6, 7, 8, 9 and 10): "
+    print("[11] main path: the FAIR hub, the ConfigHub lookup service and "
+          "the scenario layer on the card")
+    t0 = time.perf_counter()
+    phase11 = hub_phase(device, smi.stdout.strip(), HUB_LIMIT_S)
+    print(f"  launches in phase 11: {phase11}")
+    if not all(phase11.values()):
+        fail(f"a kernel of phase 11's main path never launched: {phase11}")
+    for name, n in phase11.items():
+        launches[name] += n
+    print(f"  [phase 11: {time.perf_counter() - t0:.1f} s]")
+    print(f"  launches on the main paths (phases 4-6, 7, 8, 9, 10 and 11): "
           f"{launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
-    print(f"  total {time.perf_counter() - t_start:.1f} s")
+    print(f"  {smi.stdout.strip()}; total {time.perf_counter() - t_start:.1f}"
+          f" s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}

@@ -6,6 +6,8 @@ Port of ``src/repro/cli.py``, with the subcommands of this slice's path:
               plain version on the CPU) into a replayable T4 cache
   bruteforce  exhaustively record a registered kernel's valid space
   merge-cache fold recording shards into one canonical cache file
+              (``--hub-root`` also registers the merge into a hub and
+              evicts stale service index entries)
   simulate    score one strategy configuration with the methodology in
               simulation mode (paper Sec. III-B/C, Eqs. 2–3)
   hypertune   exhaustive hyperparameter-grid campaign (Sec. IV-B,
@@ -15,14 +17,34 @@ Port of ``src/repro/cli.py``, with the subcommands of this slice's path:
               Eq. 4), journaled for resume
   report      inspect a campaign journal: ranking, optimal-vs-average
               improvement, wall-clock parallelism
+  spaces      per-space statistics for the selected hub/cache spaces and
+              the strategies' hyperparameter grids
+  lookup      best known config for (kernel, problem shape, device) from
+              the recorded hub: exact hit, nearest-shape transfer with
+              confidence, roofline-modeled answer, or cold (exit 3)
+  serve       line-oriented lookup service: JSON requests on stdin, one
+              ``LookupResult`` JSON per line on stdout
+  scenarios   the scenario matrix: every (kernel x shape x device) triple
+              with its coverage tier (recorded | modeled | cold), optional
+              best times, JSON artifact output, and the recorded best-time
+              regression gate
+  fleet       run/resume the recording fleet over the scenario matrix:
+              record -> merge -> register each runnable triple into the
+              hub, journaled so re-runs skip completed work
+  hub         hub dataset management: build, info, verify (sha256 every
+              indexed file), stats (includes the coverage matrix)
   lint        parity-lint: determinism and pickle-safety static analysis
               of the port (``repro_torch.analysis``)
 
 Flags mirror ``repro``'s flags of the same names, with one difference:
 ``--device`` names where the work runs (``cuda``, the default, or
-``cpu``), and a live recording is labelled with the card's name. There is
-no hub yet, so the scoring commands take their spaces from repeatable
-``--cache`` files.
+``cpu``), and a live recording is labelled with the card's name. The
+lookup verb's ``--device`` names the key's device, as in the reference (a
+device model, or a recorded label such as the card's name); there
+``cuda`` and ``cpu`` stand for the label of that live device, where a
+warm-start flight records. The scoring commands (``simulate``,
+``hypertune``, ``meta``) take their spaces from repeatable ``--cache``
+files; ``spaces`` also reads a hub selection.
 """
 from __future__ import annotations
 
@@ -115,6 +137,16 @@ def cmd_merge_cache(args) -> int:
     print(f"merged {cache.meta['n_shards']} shards -> {args.out}: "
           f"{cache.meta['n_configs']} configs ({cache.meta['n_ok']} ok) "
           f"for {cache.kernel}@{cache.device}")
+    if args.hub_root:
+        from .api import Hub
+        # a recording's problem overrides the kernel's smoke sizes; the
+        # hub keys shapes in full
+        problem = header.get("problem") or None
+        if cache.kernel in KERNELS:
+            problem = KERNELS[cache.kernel].problem(problem)
+        key = Hub(args.hub_root).register(cache, problem=problem)
+        print(f"registered in hub {args.hub_root} as {key} "
+              f"(live lookup indexes invalidated)")
     return 0
 
 
@@ -270,6 +302,263 @@ def cmd_report(args) -> int:
     return 0
 
 
+def cmd_spaces(args) -> int:
+    """Per-space stats (thin over ``repro_torch.api.describe_space``)."""
+    from .api import Tuner, hyperparam_space_stats
+
+    def row(st: dict) -> str:
+        adj, ham = st["degrees"]["strictly_adjacent"], st["degrees"]["hamming"]
+        return (f"  {st['name']:32s} {st['cartesian_size']:>9d} "
+                f"{st['n_valid']:>8d} {st['valid_fraction']:>6.1%} "
+                f"{adj['median']:>5.1f}/{adj['max']:<4d} "
+                f"{ham['median']:>6.1f}/{ham['max']:<5d} "
+                f"{st['compile_seconds']*1e3:>8.1f}")
+
+    header = (f"  {'space':32s} {'cartesian':>9s} {'valid':>8s} {'frac':>6s} "
+              f"{'adj med/max':>10s} {'ham med/max':>12s} {'compile ms':>9s}")
+    tuner = Tuner(caches=args.cache or None,
+                  kernels=_csv(args.kernels), devices=_csv(args.devices),
+                  split=args.split, hub_root=args.hub_root)
+    print("search spaces (hub/cache selection):")
+    print(header)
+    for st in tuner.space_stats():
+        print(row(st))
+    print(f"hyperparameter grids "
+          f"({'Table IV extended' if args.extended else 'Table III'}):")
+    print(header)
+    for st in hyperparam_space_stats(extended=args.extended):
+        print(row(st))
+    return 0
+
+
+def _csv(text: str | None) -> list | None:
+    return text.split(",") if text else None
+
+
+def _live_alias(name: str) -> bool:
+    """Does a lookup's device name the live device (``cuda``, ``cuda:N``,
+    ``cpu``) rather than a device model or a recorded label?"""
+    return name in ("cuda", "cpu") or name.startswith("cuda:")
+
+
+def _lookup_hub(args, live: str | None = None):
+    """A ``ConfigHub`` from the shared lookup/serve options; ``live`` is
+    where a warm-start flight records (the card unless ``"cpu"``)."""
+    from .hub import DEFAULT_ROOT
+    from .service import ConfigHub
+    warm: bool | dict = False
+    if getattr(args, "warm_start", False):
+        warm = {"max_evals": args.warm_max_evals, "device": live}
+    return ConfigHub(args.hub_root or DEFAULT_ROOT,
+                     verify=not args.no_verify,
+                     ttl_s=getattr(args, "ttl", None), warm_start=warm)
+
+
+def _print_lookup(r, as_json: bool) -> None:
+    import json as _json
+    if as_json:
+        print(_json.dumps(r.to_json()))
+        return
+    print(f"{r.kernel}@{r.device} "
+          f"{'{' + ', '.join(f'{k}={v}' for k, v in r.problem.items()) + '}'}"
+          f": {r.status} (confidence {r.confidence:.2f})")
+    if r.best_config is not None:
+        val = (f"{r.best_value * 1e3:.3f} ms"
+               if r.best_value not in (None, float('inf')) else "n/a")
+        kind = "modeled" if r.status == "modeled" else "recorded ok"
+        print(f"  best: {r.best_config} ({val}, over {r.n_configs} "
+              f"{kind} configs)")
+    if r.status == "transfer":
+        print(f"  donor: {r.source} problem={r.donor_problem} "
+              f"shape-distance {r.distance:.3f}")
+    elif r.status == "modeled" and r.model:
+        print(f"  model: {r.model['model']} on {r.model['device_model']} "
+              f"({r.model['dominant']}-bound, "
+              f"{r.model['n_ok']}/{r.model['n_valid']} configs feasible)")
+    elif r.source:
+        print(f"  source: {r.source}")
+    print(f"  resolved in {r.wall_seconds * 1e6:.0f} us")
+
+
+def cmd_lookup(args) -> int:
+    """One-shot service lookup against the recorded hub."""
+    from .cuda import device_label, resolve_device
+    live, device = None, args.device
+    if _live_alias(device):
+        live = resolve_device(device)
+        device = device_label(live)
+    hub = _lookup_hub(args, live)
+    problem = _parse_kv(args.problem, "--problem") or None
+    r = hub.lookup(args.kernel, problem, device)
+    if args.wait and r.status == "warming" and hub.warm_start is not None:
+        flight = hub.warm_start.ensure(args.kernel, device, r.problem)
+        flight.join(args.wait)
+        r = hub.lookup(args.kernel, problem, device)
+    _print_lookup(r, args.json)
+    return 0 if r.found else 3
+
+
+def serve_requests(hub, lines):
+    """The ``serve`` loop, factored for tests: yields one result dict per
+    input line. A line is a JSON object (one request: ``kernel`` plus
+    optional ``problem``/``device``) or a JSON array of them (batched
+    through ``lookup_many``). Bad lines yield an ``error`` dict instead of
+    killing the service."""
+    import json as _json
+    for line in lines:
+        line = line.strip()
+        if not line:
+            continue
+        try:
+            req = _json.loads(line)
+            if isinstance(req, list):
+                for r in hub.lookup_many(req):
+                    yield r.to_json()
+            else:
+                yield hub.lookup(req["kernel"], req.get("problem"),
+                                 req.get("device", "tpu_v5e")).to_json()
+        except (ValueError, KeyError, TypeError) as e:
+            yield {"error": f"{type(e).__name__}: {e}", "request": line}
+
+
+def cmd_serve(args) -> int:
+    """Stdin/stdout lookup service (one JSON request per line)."""
+    import json as _json
+    hub = _lookup_hub(args, args.device)
+    if args.warm_up:
+        n = hub.warm_up()
+        print(f"warmed {n} hub entries", file=sys.stderr, flush=True)
+    print(f"serving lookups over {hub.root} "
+          f"(entries: {hub.stats()['entries']}); one JSON request per "
+          f"line, e.g. {{\"kernel\": \"gemm\", \"device\": \"tpu_v5e\"}}",
+          file=sys.stderr, flush=True)
+    for result in serve_requests(hub, sys.stdin):
+        print(_json.dumps(result), flush=True)
+    stats = hub.stats()
+    print(f"served {sum(stats['lookups'].values())} lookups "
+          f"({stats['lookups']}); {stats['disk_loads']} cache loads",
+          file=sys.stderr)
+    return 0
+
+
+def _build_matrix(args):
+    """A ``ScenarioMatrix`` from the shared --kernels/--devices CSVs; the
+    live row is ``--device``'s label when --devices is not given."""
+    from .scenarios import ScenarioMatrix
+    return ScenarioMatrix(kernels=_csv(args.kernels),
+                          devices=_csv(args.devices), device=args.device)
+
+
+def cmd_scenarios(args) -> int:
+    """Coverage report over the scenario matrix: every (kernel x shape x
+    device) triple with its tier, optionally best times and the recorded
+    best-time regression gate."""
+    import json as _json
+
+    from .hub import DEFAULT_ROOT
+    from .scenarios import gate_recorded
+    from .service import ConfigHub
+    matrix = _build_matrix(args)
+    hub = ConfigHub(args.hub_root or DEFAULT_ROOT, verify=not args.no_verify)
+    with_best = args.best or bool(args.gate) or bool(args.out)
+    report = matrix.coverage(hub, with_best=with_best)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            _json.dump(report.to_json(), f, indent=1)
+            f.write("\n")
+    if args.json:
+        print(_json.dumps(report.to_json(), indent=1))
+    else:
+        for row in report.rows:
+            best = ""
+            if row.best_value is not None:
+                best = f"  {row.best_value * 1e3:.3f} ms"
+            print(f"  {row.scenario.key:58s} {row.tier:8s}{best}")
+        counts = report.counts()
+        total = sum(counts.values())
+        print(f"{total} scenarios: " + ", ".join(
+            f"{counts.get(t, 0)} {t}" for t in ("recorded", "modeled",
+                                                "cold")))
+    if args.gate:
+        with open(args.gate, "r", encoding="utf-8") as f:
+            baseline = _json.load(f)
+        base_best = {r["key"]: r["best_value"]
+                     for r in baseline.get("rows", [])
+                     if r.get("tier") == "recorded"
+                     and r.get("best_value") is not None}
+        failures = gate_recorded(report.recorded_best(), base_best,
+                                 threshold=args.threshold)
+        if failures:
+            for msg in failures:
+                print(f"  GATE {msg}")
+            print(f"{len(failures)} recorded-best regression(s) vs "
+                  f"{args.gate}")
+            return 1
+        print(f"gate ok: {len(base_best)} recorded baselines within "
+              f"{args.threshold:.0%}")
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """Run/resume the recording fleet: record -> merge -> register every
+    runnable triple of the matrix into the hub, journaled so completed
+    scenarios are skipped on re-run."""
+    import json as _json
+
+    from .hub import DEFAULT_ROOT
+    from .scenarios import run_fleet
+    outcome = run_fleet(
+        args.hub_root or DEFAULT_ROOT,
+        matrix=_build_matrix(args),
+        runner=args.runner, strategy=args.strategy,
+        max_evals=args.max_evals, repeats=args.repeats,
+        workers=args.workers, backend=args.backend, seed=args.seed,
+        progress=_progress(args.quiet), device=args.device)
+    if args.json:
+        print(_json.dumps(outcome.to_json(), indent=1))
+    else:
+        print(f"fleet: {len(outcome.recorded)} recorded, "
+              f"{len(outcome.skipped)} already journaled, "
+              f"{len(outcome.covered)} already in hub, "
+              f"{len(outcome.unrunnable)} unrunnable with "
+              f"runner={args.runner}")
+        for key in outcome.recorded:
+            print(f"  recorded {key}")
+    return 0
+
+
+def cmd_hub(args) -> int:
+    """Hub dataset management (build / info / verify / stats)."""
+    import json as _json
+
+    from .api import Hub
+    hub = Hub(args.root)
+    if args.action == "build":
+        Hub.build(args.root, device=args.device, kernels=_csv(args.kernels),
+                  devices=_csv(args.devices))
+        m = hub.manifest
+        print(f"hub built at {os.path.abspath(hub.root)} in "
+              f"{m['build_wall_seconds']:.1f}s wall ({len(m['files'])} "
+              f"entries)")
+        return 0
+    if args.action == "verify":
+        failures = hub.verify(strict=False)
+        entries = len(hub.manifest["files"])
+        if failures:
+            for key, reason in sorted(failures.items()):
+                print(f"  FAIL {key}: {reason}")
+            print(f"{len(failures)} of {entries} entries failed "
+                  f"verification")
+            return 1
+        print(f"ok: all {entries} entries verified (sha256)")
+        return 0
+    if args.action == "info":
+        print(_json.dumps(hub.manifest, indent=1))
+        return 0
+    print(_json.dumps(hub.stats(device=args.device), indent=1))  # stats
+    return 0
+
+
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 DEFAULT_BASELINE = os.path.join(PACKAGE_DIR, "analysis",
                                 "parity-lint-baseline.json")
@@ -407,6 +696,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "one canonical T4 cache")
     pmc.add_argument("shards", nargs="+", metavar="SHARD")
     pmc.add_argument("--out", required=True, metavar="PATH")
+    pmc.add_argument("--hub-root", default=None, metavar="DIR",
+                     help="also register the merged cache in this hub's "
+                          "manifest and invalidate live lookup services")
     pmc.set_defaults(fn=cmd_merge_cache)
 
     ps = sub.add_parser("simulate", help="score one strategy configuration "
@@ -457,6 +749,151 @@ def build_parser() -> argparse.ArgumentParser:
                     help="path to a campaign JSONL journal")
     pr.add_argument("--top", type=int, default=10)
     pr.set_defaults(fn=cmd_report)
+
+    live_help = ("where live work runs (default: the card); cpu runs the "
+                 "kernels' plain versions")
+
+    psp = sub.add_parser("spaces", help="per-space stats: sizes, valid "
+                         "fraction, neighbor degrees, compile time")
+    psp.add_argument("--cache", action="append", default=[], metavar="PATH",
+                     help="T4 cache file; repeatable. Overrides the hub "
+                          "options")
+    psp.add_argument("--split", choices=("train", "test"), default="train",
+                     help="hub device split (default train)")
+    psp.add_argument("--kernels", default=None,
+                     help="comma-separated hub kernels (default: all)")
+    psp.add_argument("--devices", default=None,
+                     help="comma-separated hub devices (overrides --split)")
+    psp.add_argument("--hub-root", default=None, metavar="DIR",
+                     help="hub directory (default: the repository's hub/)")
+    psp.add_argument("--extended", action="store_true",
+                     help="show the Table IV extended hyperparameter grids "
+                          "instead of Table III")
+    psp.set_defaults(fn=cmd_spaces)
+
+    def add_lookup_args(pp, serve: bool) -> None:
+        pp.add_argument("--hub-root", default=None, metavar="DIR",
+                        help="hub directory (default: the repository's "
+                             "hub/)")
+        pp.add_argument("--no-verify", action="store_true",
+                        help="skip sha256 verification when materializing "
+                             "hub entries")
+        pp.add_argument("--ttl", type=float, default=None, metavar="SECONDS",
+                        help="re-stat materialized entries older than this "
+                             "(default: only explicit invalidation)")
+        pp.add_argument("--warm-start", action="store_true",
+                        help="launch a journaled recording campaign "
+                             "(single-flight) for cold keys: the cost model "
+                             "for a device model, live for the live "
+                             "device's label")
+        pp.add_argument("--warm-max-evals", type=int, default=32,
+                        help="fresh-eval budget of a warm-start campaign")
+        if serve:
+            pp.add_argument("--device", choices=("cuda", "cpu"),
+                            default=None,
+                            help="where a live warm-start flight records "
+                                 "(default: the card)")
+            return
+        pp.add_argument("--kernel", required=True,
+                        help="kernel name (hub or registry)")
+        pp.add_argument("--device", default="tpu_v5e",
+                        help="the key's device: a device model or a "
+                             "recorded label (default tpu_v5e); cuda or cpu "
+                             "mean that live device's label, where a "
+                             "warm-start flight records")
+        pp.add_argument("--problem", default=None, metavar="K=V,...",
+                        help="problem sizes (default: the kernel's hub "
+                             "shape)")
+        pp.add_argument("--json", action="store_true",
+                        help="print the LookupResult as JSON")
+        pp.add_argument("--wait", type=float, default=None,
+                        metavar="SECONDS",
+                        help="with --warm-start: block up to SECONDS for "
+                             "the campaign before answering")
+
+    plk = sub.add_parser("lookup", help="best known config for (kernel, "
+                         "problem, device) from the recorded hub")
+    add_lookup_args(plk, serve=False)
+    plk.set_defaults(fn=cmd_lookup)
+
+    psv = sub.add_parser("serve", help="lookup service: JSON requests on "
+                         "stdin, LookupResult JSON lines on stdout")
+    add_lookup_args(psv, serve=True)
+    psv.add_argument("--warm-up", action="store_true",
+                     help="materialize every hub entry before serving")
+    psv.set_defaults(fn=cmd_serve)
+
+    def add_matrix_args(pp) -> None:
+        pp.add_argument("--kernels", default=None,
+                        help="comma-separated kernels (default: all "
+                             "registered)")
+        pp.add_argument("--devices", default=None,
+                        help="comma-separated devices (default: hub "
+                             "device models + the live device's label)")
+        pp.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                        help=live_help)
+
+    psc = sub.add_parser("scenarios", help="coverage over the scenario "
+                         "matrix: every (kernel x shape x device) triple, "
+                         "recorded | modeled | cold")
+    add_matrix_args(psc)
+    psc.add_argument("--hub-root", default=None, metavar="DIR",
+                     help="hub directory (default: the repository's hub/)")
+    psc.add_argument("--no-verify", action="store_true",
+                     help="skip sha256 verification of hub entries")
+    psc.add_argument("--best", action="store_true",
+                     help="resolve and show the best time per triple")
+    psc.add_argument("--json", action="store_true",
+                     help="print the coverage report as JSON")
+    psc.add_argument("--out", default=None, metavar="PATH",
+                     help="also write the JSON report to PATH (the "
+                          "artifact / gate baseline)")
+    psc.add_argument("--gate", default=None, metavar="BASELINE",
+                     help="fail if any recorded best time regressed vs "
+                          "this earlier coverage JSON")
+    psc.add_argument("--threshold", type=float, default=0.2,
+                     help="allowed recorded-best slowdown for --gate "
+                          "(default 0.2 = 20%%)")
+    psc.set_defaults(fn=cmd_scenarios)
+
+    pfl = sub.add_parser("fleet", help="run/resume the recording fleet "
+                         "over the scenario matrix (journaled)")
+    add_matrix_args(pfl)
+    pfl.add_argument("--hub-root", default=None, metavar="DIR",
+                     help="hub directory to register into (default: the "
+                          "repository's hub/)")
+    pfl.add_argument("--runner", choices=("live", "costmodel", "surrogate"),
+                     default="costmodel",
+                     help="recorder per triple (live records the live "
+                          "device's row only; default costmodel)")
+    pfl.add_argument("--strategy", default="random_search",
+                     choices=sorted(STRATEGIES))
+    pfl.add_argument("--max-evals", type=int, default=64,
+                     help="fresh-evaluation cap per scenario (default 64)")
+    pfl.add_argument("--repeats", type=int, default=3,
+                     help="observations per fresh evaluation (default 3)")
+    add_exec_args(pfl)
+    pfl.add_argument("--seed", type=int, default=0)
+    pfl.add_argument("--json", action="store_true",
+                     help="print the fleet outcome as JSON")
+    pfl.add_argument("--quiet", action="store_true")
+    pfl.set_defaults(fn=cmd_fleet)
+
+    phub = sub.add_parser("hub", help="hub dataset management: build, "
+                          "info, verify (sha256), stats")
+    phub.add_argument("action", choices=("build", "info", "verify", "stats"))
+    phub.add_argument("--root", default=None,
+                      help="hub directory (default: the repository's hub/)")
+    phub.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                      help="build: where the framework kernels' smoke "
+                           "recordings run; stats: the coverage's live row "
+                           "(default: the card)")
+    phub.add_argument("--kernels", default=None,
+                      help="build: comma-separated kernels (default: all)")
+    phub.add_argument("--devices", default=None,
+                      help="build: comma-separated device models "
+                           "(default: all six)")
+    phub.set_defaults(fn=cmd_hub)
 
     pl = sub.add_parser("lint", help="parity-lint: determinism & "
                         "pickle-safety static analysis of the port")

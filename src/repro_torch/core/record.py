@@ -28,8 +28,8 @@ Port copy of ``src/repro/core/record.py``
 and kept as its own copy: the port imports nothing of ``repro``.
 Changes: kernels resolve from the port's registry (``repro_torch.kernels``);
 a live ``RecordSpec`` names where its kernel runs (``target``, the card
-unless ``"cpu"``) and labels its cache with the card's name; the
-``"surrogate"`` runner waits for the scenario slice; and ``record_cache``
+unless ``"cpu"``) and labels its cache with the card's name; and
+``record_cache``
 (the orchestration the reference keeps in ``repro.api.Tuner.record``)
 refuses a live recording on the card with more than one worker.
 The shard and cache formats are unchanged, so shards and caches move
@@ -257,7 +257,7 @@ class RecordSpec:
     kernel runs."""
 
     kernel: str
-    runner: str = "live"            # "live" (the port's kernel) | "costmodel"
+    runner: str = "live"    # "live" (the port's kernel) | "costmodel" | "surrogate"
     device: str = ""
     target: str = "cuda"            # live only: "cuda" (the card) | "cpu"
     problem: tuple = ()             # sorted ((key, value), ...)
@@ -280,7 +280,8 @@ class RecordSpec:
             kw["target"] = resolve_device(kw.get("target"))
             kw["device"] = kw.get("device") or device_label(kw["target"])
         elif not kw.get("device"):
-            raise ValueError("a cost-model recording names its device model")
+            raise ValueError("a cost-model or surrogate recording names "
+                             "its device model")
         return RecordSpec(kernel=kernel, **kw)
 
     @property
@@ -310,6 +311,18 @@ class RecordSpec:
                     f"{sorted(DEVICES_BY_NAME)}")
             spec = self.kernel_spec()
             return CostModelRunner(space, spec.workload(self.problem_dict),
+                                   device, budget)
+        if self.runner == "surrogate":
+            try:
+                device = DEVICES_BY_NAME[self.device]
+            except KeyError:
+                raise ValueError(
+                    f"unknown device model {self.device!r}; known: "
+                    f"{sorted(DEVICES_BY_NAME)}")
+            # late: scenarios sits above core in the layer diagram
+            from ..scenarios.surrogate import SurrogateRunner
+            spec = self.kernel_spec()
+            return SurrogateRunner(space, spec.workload(self.problem_dict),
                                    device, budget)
         raise ValueError(f"unknown runner kind {self.runner!r}")
 

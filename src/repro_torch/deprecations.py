@@ -4,11 +4,17 @@ Port of ``src/repro/deprecations.py``: the same pattern, with the port's
 own classes. A retired surface keeps a thin delegating shim that emits a
 dedicated ``DeprecationWarning`` subclass, defined in this dependency-free
 module so that a warning filter can name the category without importing
-the shim. Only ``ServingMovedWarning`` is here: the reference's
-``HubDeprecationWarning`` guards ``core.dataset``, which the port does not
-have yet (ROADMAP Queue 1).
+the shim. ``pytest.ini`` escalates only ``repro``'s classes, so a test of
+a port's shim asserts its warning with ``pytest.warns``.
 """
 from __future__ import annotations
+
+
+class HubDeprecationWarning(DeprecationWarning):
+    """The ``repro_torch.core.dataset`` free functions (``build_hub`` /
+    ``load_hub`` / ``train_test_caches``) moved to ``repro_torch.hub``
+    (storage layer) and the ``repro_torch.api.Hub`` facade, as the
+    reference's moved to ``repro.hub``."""
 
 
 class ServingMovedWarning(DeprecationWarning):

@@ -29,6 +29,9 @@ gradients by relative error, RTOL of the dtype and 3e-3); one tiny train
 step on the card against the CPU in float32 compute, the loss within 1e-4
 and every parameter within 3e-5 (a tenth of the learning rate: AdamW's
 first step moves each by about lr).
+The hub on the card: the framework kernels' smoke recordings, a live
+fleet and a live warm start launch their kernels exactly as often as
+their recordings ran them (one warm-up and one a repeat an ok config).
 """
 import dataclasses
 import random
@@ -1263,3 +1266,55 @@ def test_free_run_on_card_random_search_exhausts(card):
     assert np.allclose(out["spent_seconds"],
                        float(cache.columns.charge_s.sum()), rtol=1e-10)
     assert (out["best_value"] == cache.optimum).all()
+
+
+# ---------------------------------------------------- the hub on the card
+def _calls(cache) -> int:
+    """Kernel calls a live recording made: one warm-up and one a repeat
+    for every ok config."""
+    return sum(1 + len(r.times_s) for r in cache.results.values()
+               if r.status == "ok")
+
+
+def test_hub_framework_smokes_on_card(card, tmp_path):
+    from repro_torch.cuda import device_label
+    from repro_torch.hub import storage
+    root = str(tmp_path / "hub")
+    before = (fa.launches, ssd.launches)
+    storage.build_hub(root, progress=None, device=card,
+                      kernels=("flash_attention", "ssd"))
+    label = device_label(card)
+    assert sorted(storage.read_manifest(root)["files"]) == [
+        f"flash_attention@{label}", f"ssd@{label}"]
+    fa_cache = storage.load_cache(root, f"flash_attention@{label}")
+    ssd_cache = storage.load_cache(root, f"ssd@{label}")
+    assert fa.launches - before[0] == _calls(fa_cache) > 0
+    assert ssd.launches - before[1] == _calls(ssd_cache) > 0
+
+
+def test_live_fleet_and_warm_start_on_card(card, tmp_path):
+    from repro_torch.cuda import device_label
+    from repro_torch.hub import storage
+    from repro_torch.scenarios import ScenarioMatrix, run_fleet
+    from repro_torch.service import ConfigHub
+    label = device_label(card)
+    root = str(tmp_path / "hub")
+    storage.write_manifest(root, storage.new_manifest())
+    matrix = ScenarioMatrix(kernels=("hotspot",), devices=(label,),
+                            shapes=("smoke",))
+    before = hs.launches
+    out = run_fleet(root, matrix=matrix, runner="live", max_evals=8,
+                    device=card)
+    assert len(out.recorded) == 1
+    cache = storage.load_cache(root, f"hotspot@{label}#h=64,w=128")
+    assert hs.launches - before == _calls(cache) > 0
+    svc = ConfigHub(root, warm_start={"max_evals": 4, "device": card})
+    before = dd.launches
+    problem = dict(dd.SMOKE_PROBLEM)
+    r = svc.lookup("dedispersion", problem, label)
+    assert r.status == "warming"
+    flight = svc.warm_start.ensure("dedispersion", label, r.problem)
+    assert flight.join(120.0) and flight.error is None
+    r = svc.lookup("dedispersion", problem, label)
+    assert r.status == "exact"
+    assert dd.launches - before == _calls(storage.load_cache(root, r.source))
