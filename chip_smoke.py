@@ -247,11 +247,28 @@ Phases (any failure ends the script with a non-zero exit):
      printed; (f) ``python -m repro_torch`` as subprocesses: ``hub
      verify`` exits 0, ``lookup`` of gemm on the card's label exits 0, a
      lookup with nothing recorded and nothing to model exits 3,
-     ``scenarios --out`` then ``scenarios --gate`` exit 0.
+     ``scenarios --out`` then ``scenarios --gate`` exit 0;
+ 12. the mesh tooling: (a) a real one-rank process group (``nccl`` over
+     a file store) and ``make_host_mesh()``: zamba2-1.2b at full width
+     served (phase 7's 4 x 1024 prefill and ``MESH_DECODE_STEPS``
+     decode steps) and its loss and gradients at phase 8's 4 x 1024,
+     first with plain parameters, then with the same weights as DTensor
+     parameters placed by ``param_shardings`` through ``annotate`` and
+     the kernels' ``local_map`` call sites: logits, cache, loss and
+     every gradient bit-identical, and the flash-attention and SSD
+     launches equal; (b) the fake-world dry run (``run_cell``) of
+     ``DRYRUN_CELLS`` at the published configs' full size on the
+     ``single`` (256 ranks) and ``multi`` (512) meshes, in
+     ``DRYRUN_WORKERS`` spawned processes each with its own fake world:
+     every cell ``ok``, its dominant term, useful ratio, peak GiB a rank,
+     collectives by type and trace seconds; (c) ``hillclimb`` of
+     olmo-1b train_4k on the single mesh, 6 evaluations, the card's
+     memory as the budget, in the same pool: its improvement over the
+     baseline.
 
 Before phase 5 every recording is checked to let a tuning run end
 (``ends_check``); phases 5, 6, 7, 8, 9, 10 and 11 each fail past a
-wall-clock limit.
+wall-clock limit (12 too).
 The budget-scan launches of phases 5-6 are printed by strategy and
 campaign.
 
@@ -266,7 +283,9 @@ SSD exactly once an attention site and a Mamba layer in phase 7's (d),
 4 times in phase 9, the budget scan alone in phase 10, exactly once a
 generation of each ``free_run`` call, and in phase 11 each kernel
 exactly as often as its live recordings ran it (the budget scan alone
-in (e)). The line
+in (e)), again around phase 12 (a), whose sharded calls launch exactly
+as the plain ones (the dry run launches nothing: its tensors are
+fakes). The line
 before the last is the JSON summary of every kernel, its launches those
 of the main paths; the last line is the device record ``{"ok": true,
 "device": {...}}``.
@@ -430,6 +449,19 @@ LOOKUP_HITS = 10_000         # warmed exact hits timed in (c)
 NAIVE_SCANS = {"card": 1000, "tpu_v5e": 100}  # naive scans timed in (c)
 FAR_GEMM = {"m": 32768, "n": 32768, "k": 32768}  # no donor within 0.3
 HUB_SCORE_REPEATS = 25       # (e): the paper's repeats
+# phase 12: the mesh tooling. (a) zamba2-1.2b on a one-rank mesh at phase
+# 7's and phase 8's shapes; (b) one dry-run cell a family and kind at the
+# published configs' full size, both meshes; (c) the distribution
+# hillclimb
+MESH_DECODE_STEPS = 3
+DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("grok-1-314b", "train_4k"),
+                ("whisper-small", "train_4k"), ("zamba2-1.2b", "prefill_32k"),
+                ("qwen2-vl-2b", "prefill_32k"),
+                ("qwen3-moe-235b-a22b", "decode_32k"),
+                ("mamba2-130m", "decode_32k"), ("gemma3-1b", "long_500k"))
+DRYRUN_WORKERS = 4           # processes tracing cells at once (8 cores)
+HILLCLIMB = ("olmo-1b", "train_4k", "single", 6)
+MESH_LIMIT_S = 600           # phase 12 fails past this wall-clock limit
 
 
 def fail(msg: str) -> None:
@@ -3528,6 +3560,185 @@ def hub_phase(device: str, card: str, limit_s: int) -> dict:
     return launches
 
 
+def flat_tree(tree: dict, prefix: str = "") -> dict:
+    """A nested dict's leaves by 'a/b' path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def one_rank_mesh(device: str) -> dict:
+    """Phase 12 (a): zamba2-1.2b served and differentiated on a real
+    one-rank mesh against the same calls unsharded, same weights.
+    Returns the sharded calls' kernel launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.distribution import annotate as an
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.mesh import destroy_world, make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.train_step import TrainConfig, make_loss_fn
+    cfg = get_config(SERVE_ARCH)
+    store = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl" if device != "cpu" else "gloo",
+                            init_method=f"file://{store}/pg", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_host_mesh(device)
+        model = seeded_model(cfg, device)
+        tokens = prompts(cfg, device, SERVE_BATCH,
+                         SERVE_PROMPT + MESH_DECODE_STEPS)
+        train_tokens = prompts(cfg, device, TRAIN_BATCH, TRAIN_SEQ + 1)
+        loss_fn = make_loss_fn(cfg, TrainConfig(remat="full"))
+        names = [n for n, _ in model.named_parameters()]
+
+        def run(sharded: bool) -> tuple:
+            """(logits, cache, loss, grads, launches) of the calls."""
+            def place(t):
+                if not sharded:
+                    return t
+                return sh.distribute_tree({"t": t}, mesh, sh.batch_shardings(
+                    mesh, {"t": t}))["t"]
+
+            def whole(t):
+                return t.full_tensor() if sharded else t
+
+            before = (fa.launches, ssd.launches)
+            logits = []
+            with torch.no_grad():
+                last, cache, n = tf.prefill(
+                    cfg, model, {"tokens": place(tokens[:, :SERVE_PROMPT])},
+                    SERVE_MAX_LEN)
+                logits.append(whole(last))
+                for i in range(MESH_DECODE_STEPS):
+                    at = SERVE_PROMPT + i
+                    step, cache = tf.decode_step(
+                        cfg, model, cache, place(tokens[:, at:at + 1]),
+                        n + i)
+                    logits.append(whole(step))
+            loss = loss_fn(model, {"tokens": place(train_tokens)})
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            torch.cuda.synchronize()
+            made = (fa.launches - before[0], ssd.launches - before[1])
+            cache = {k: whole(v) for k, v in flat_tree(cache).items()}
+            return (logits, cache, whole(loss).detach(),
+                    [whole(g) for g in grads], made)
+
+        t0 = time.perf_counter()
+        plain = run(False)
+        plain_s = time.perf_counter() - t0
+        sh.distribute_model(model, mesh)
+        t0 = time.perf_counter()
+        with an.annotation_mesh(mesh), implicit_replication():
+            sharded = run(True)
+        sharded_s = time.perf_counter() - t0
+        diffs = {
+            "logits": max((a - b).abs().max().item()
+                          for a, b in zip(plain[0], sharded[0])),
+            "cache": max((plain[1][k].float() - sharded[1][k].float()
+                          ).abs().max().item() for k in plain[1]),
+            "loss": (plain[2] - sharded[2]).abs().item(),
+            "grads": max((a - b).abs().max().item()
+                         for a, b in zip(plain[3], sharded[3]))}
+        same = (all(torch.equal(a, b) for a, b in zip(plain[0], sharded[0]))
+                and all(torch.equal(plain[1][k], sharded[1][k])
+                        for k in plain[1])
+                and torch.equal(plain[2], sharded[2])
+                and all(torch.equal(a, b)
+                        for a, b in zip(plain[3], sharded[3])))
+        print(f"  (a) {cfg.name} on a one-rank mesh "
+              f"{tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)}: a "
+              f"{SERVE_BATCH} x {SERVE_PROMPT} prefill, "
+              f"{MESH_DECODE_STEPS} decode steps, the loss and "
+              f"{len(names)} gradients at {TRAIN_BATCH} x {TRAIN_SEQ}: "
+              f"plain {plain_s:.2f} s, DTensor {sharded_s:.2f} s; max "
+              f"|diff| {diffs}; launches plain {plain[4]}, sharded "
+              f"{sharded[4]}; loss {plain[2].item():.6f} "
+              f"{'bit-identical' if same else 'MISMATCH'}")
+        if not same:
+            fail(f"phase 12 (a): the one-rank mesh differs from the plain "
+                 f"calls: {diffs}")
+        if plain[4] != sharded[4] or not all(plain[4]):
+            fail(f"phase 12 (a): launches plain {plain[4]}, sharded "
+                 f"{sharded[4]}")
+        return {"flash_attention": sharded[4][0], "ssd": sharded[4][1]}
+    finally:
+        destroy_world()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def mesh_phase(device: str, card: str, limit_s: int) -> dict:
+    """Phase 12: (b) and (c) start in a pool of spawned processes (each a
+    fake world of 512 ranks), (a) runs here meanwhile; every worker is
+    stopped at the end. Returns (a)'s launches."""
+    import concurrent.futures as cf
+    import multiprocessing as mproc
+    from repro_torch.autotune import perf
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_world
+    time_limit(12, limit_s)
+    t_phase = time.perf_counter()
+    pool = cf.ProcessPoolExecutor(
+        DRYRUN_WORKERS, mp_context=mproc.get_context("spawn"),
+        initializer=init_fake_world, initargs=(512,))
+    try:
+        cells = [(a, s, m) for a, s in DRYRUN_CELLS
+                 for m in ("single", "multi")]
+        arch, shape, mesh_kind, evals = HILLCLIMB
+        climb = pool.submit(
+            perf.hillclimb, arch, shape, mesh_kind, max_evals=evals,
+            out_dir=str(ROOT / "build" / "chip_smoke" / "perf"),
+            hbm_budget=torch.cuda.get_device_properties(0).total_memory,
+            device=device)
+        futures = [pool.submit(dryrun.run_cell, *c, device=device)
+                   for c in cells]
+        launches = one_rank_mesh(device)
+        print(f"  (b) fake-world dry run, {len(cells)} cells in "
+              f"{DRYRUN_WORKERS} processes ({card}):")
+        bad = []
+        for (a, s, m), f in zip(cells, futures):
+            rec = f.result()
+            if rec["status"] != "ok":
+                bad.append((a, s, m))
+                print(f"      {a:20s} {s:12s} {m:6s} {rec['status'].upper()}"
+                      f" {rec.get('error', rec.get('reason'))}\n"
+                      f"{rec.get('traceback', '')}")
+                continue
+            r, mem = rec["roofline"], rec["memory"]
+            coll = rec["collectives"]["counts"]
+            print(f"      {a:20s} {s:12s} {m:6s} ok  dominant "
+                  f"{r['dominant']:10s} useful {r['useful_ratio']:.4f} "
+                  f"peak {mem['peak_bytes_per_chip'] / 2**30:.2f} GiB a rank"
+                  f", flops {rec['cost']['hlo_flops_per_chip']:.4g} a rank"
+                  f" (analytic {rec['cost']['analytic_flops_per_chip']:.4g})"
+                  f", collectives {coll}, {rec['local_ops']} local ops, "
+                  f"traced in {rec['compile_s']} s")
+        if bad:
+            fail(f"phase 12 (b): dry-run cells not ok: {bad}")
+        res = climb.result()
+        print(f"  (c) hillclimb {arch} {shape} {mesh_kind}, {evals} "
+              f"evaluations: baseline {res['baseline']}, best "
+              f"{res['best']}, improvement {res['improvement']}")
+        for e in res["evaluations"]:
+            print(f"      {e}")
+        if res["improvement"] is None:
+            fail("phase 12 (c): the hillclimb found no feasible config")
+        print(f"  [phase 12 (a)-(c): {time.perf_counter() - t_phase:.1f} s]")
+        return launches
+    finally:
+        signal.alarm(0)
+        for proc in list(getattr(pool, "_processes", {}).values()):
+            proc.terminate()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
@@ -3670,8 +3881,22 @@ def main() -> int:
     for name, n in phase11.items():
         launches[name] += n
     print(f"  [phase 11: {time.perf_counter() - t0:.1f} s]")
-    print(f"  launches on the main paths (phases 4-6, 7, 8, 9, 10 and 11): "
-          f"{launches}")
+    print("[12] main path: the mesh tooling: a one-rank DTensor mesh on "
+          "the card, the fake-world dry run, the distribution hillclimb")
+    t0 = time.perf_counter()
+    reset_launches()
+    phase12 = mesh_phase(device, smi.stdout.strip(), MESH_LIMIT_S)
+    after = read_launches()
+    # the plain calls (the comparison) and the sharded ones launch alike
+    if {k: v for k, v in after.items() if v} != {
+            k: 2 * v for k, v in phase12.items()}:
+        fail(f"phase 12 launched other than its plain and sharded calls "
+             f"({phase12} each): {after}")
+    for name, n in phase12.items():
+        launches[name] += n
+    print(f"  [phase 12: {time.perf_counter() - t0:.1f} s]")
+    print(f"  launches on the main paths (phases 4-6, 7, 8, 9, 10, 11 and "
+          f"12): {launches}")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(f"  {smi.stdout.strip()}; total {time.perf_counter() - t_start:.1f}"

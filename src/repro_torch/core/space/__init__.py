@@ -18,8 +18,8 @@ Module map:
 
 Port copy of ``src/repro/core/space/__init__.py``
 and kept as its own copy: the port imports nothing of ``repro``. The
-reference's ``reference.py`` (the frozen scalar oracle) stays behind: it is
-a test oracle, not part of the port's path.
+port keeps its own copy of ``reference.py``, the frozen scalar oracle the
+compiled space is pinned against (not part of the port's path).
 """
 from .compile import compile_space
 from .compiled import CompiledSpace

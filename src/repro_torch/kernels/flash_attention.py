@@ -35,6 +35,15 @@ key-length bound ``kv_len``: the keys from ``kv_len`` on are a pad,
 masked with ``NEG_INF`` as the reference masks its pad, and the kernel
 visits no tile and no sub-tile of pad alone. A causal or window mask
 needs Sq == Skv (the reference's models ask for no other).
+
+``flash_attention`` goes through the operator
+``torch.ops.repro_torch.flash_attention`` (``torch.library.custom_op``):
+its implementation is the launch (the plain version on the CPU), its
+fake implementation gives fake tensors the output shapes, and its flop
+formula, ``workload().flops``, lets PyTorch's flop counting see the
+kernel, so the dry run traces models through it. ``launches`` counts
+as before; ``launch`` calls the same code without the dispatcher, for
+``make_live``'s recordings.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from dataclasses import dataclass
 from typing import Mapping
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import cuda
 from ..core.costmodel import KernelWorkload, alignment_eff
@@ -215,21 +225,9 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    block_q: int = 128, block_kv: int = 128,
-                    causal: bool = True, window: int | None = None,
-                    return_lse: bool = False, kv_len: int | None = None):
-    """q: (BH, Sq, D); k/v: (BH_kv, Skv, D) with BH % BH_kv == 0 (GQA: q
-    head h reads kv head h // (BH / BH_kv)), float32 or bf16, the
-    reference's layout. Keys from ``kv_len`` (1 <= kv_len <= Skv, default
-    Skv) on are masked as a pad; a causal or window mask needs Sq == Skv.
-    The CUDA kernel for tensors on the card, launched as ``plan`` says, and
-    ``attention_plain`` for tensors on the CPU. With ``return_lse`` it
-    returns ``(out, lse)``, lse the (BH, Sq) float32 logsumexp of each q
-    row's masked, scaled scores. Raises ``ConfigRejected`` for a problem
-    ``plan`` refuses, on either device; a plan the C side refuses raises
-    ``RuntimeError`` without a launch."""
-    global launches
+def _checked(q, k, v, block_q, block_kv, causal, window, kv_len) -> tuple:
+    """Validate a call; returns (plan, kv_len). Shapes only, so it holds
+    for fake tensors too."""
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 \
             or k.shape[2] != q.shape[2]:
         raise ValueError(f"flash_attention takes q (BH, Sq, D) and k, v "
@@ -262,14 +260,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"not fit csrc/flash_attention.cu")
     if not q.device == k.device == v.device:
         raise ValueError("flash_attention operands lie on different devices")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
+                         f"{q.device}")
+    return pl, kv_len
+
+
+def _run(q, k, v, pl: Plan, block_q: int, block_kv: int, causal: bool,
+         window, return_lse: bool, kv_len: int):
+    """A checked call: the kernel for tensors on the card, ``attention_plain``
+    for tensors on the CPU."""
+    global launches
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, window=window,
                                return_lse=return_lse, kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on CUDA or the CPU, not "
-                         f"{q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous tensors")
+    bh, sq, d = q.shape
+    bh_kv, skv = k.shape[:2]
     lib = _lib()
     out = torch.empty_like(q)
     lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
@@ -284,6 +292,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cuda.check_launch(lib, rc, "flash_attention")
     launches += 1
     return (out, lse) if return_lse else out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              block_q: int, block_kv: int, causal: bool, window: int,
+              return_lse: bool, kv_len: int) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """The checked call as an operator PyTorch can trace: ``window`` -1 is
+    none; the lse is an empty tensor unless ``return_lse``."""
+    pl = plan(block_q, block_kv, q.shape[1], q.shape[2], q.dtype, k.shape[1])
+    got = _run(q, k, v, pl, block_q, block_kv, causal,
+               None if window < 0 else window, return_lse, kv_len)
+    if return_lse:
+        return got
+    return got, q.new_empty((0,), dtype=torch.float32)
+
+
+@_flash_op.register_fake
+def _(q, k, v, block_q, block_kv, causal, window, return_lse, kv_len):
+    lse_shape = q.shape[:2] if return_lse else (0,)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, block_q, block_kv, causal,
+                 window, return_lse, kv_len, *args, out_shape=None,
+                 **kwargs) -> int:
+    """``workload().flops`` of the call: 4·BH·Sq·kv_len·d, halved under a
+    causal mask."""
+    bh, sq, d = q_shape
+    return int(workload(bh, sq, d, causal).flops({}) * kv_len // sq)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    block_q: int = 128, block_kv: int = 128,
+                    causal: bool = True, window: int | None = None,
+                    return_lse: bool = False, kv_len: int | None = None):
+    """q: (BH, Sq, D); k/v: (BH_kv, Skv, D) with BH % BH_kv == 0 (GQA: q
+    head h reads kv head h // (BH / BH_kv)), float32 or bf16, the
+    reference's layout. Keys from ``kv_len`` (1 <= kv_len <= Skv, default
+    Skv) on are masked as a pad; a causal or window mask needs Sq == Skv.
+    The CUDA kernel for tensors on the card, launched as ``plan`` says, and
+    ``attention_plain`` for tensors on the CPU, both through the operator
+    ``torch.ops.repro_torch.flash_attention``, so that fake tensors get
+    their shapes (``register_fake``) and a flop count
+    (``register_flop_formula``) without a launch. With ``return_lse`` it
+    returns ``(out, lse)``, lse the (BH, Sq) float32 logsumexp of each q
+    row's masked, scaled scores. Raises ``ConfigRejected`` for a problem
+    ``plan`` refuses, on either device; a plan the C side refuses raises
+    ``RuntimeError`` without a launch."""
+    _, kv_len = _checked(q, k, v, block_q, block_kv, causal, window, kv_len)
+    out, lse = torch.ops.repro_torch.flash_attention(
+        q, k, v, block_q, block_kv, causal, -1 if window is None else window,
+        return_lse, kv_len)
+    return (out, lse) if return_lse else out
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           block_q: int = 128, block_kv: int = 128, causal: bool = True,
+           window: int | None = None, return_lse: bool = False,
+           kv_len: int | None = None):
+    """``flash_attention`` without the operator's dispatch: the live
+    objective's call, so that no recording pays the dispatcher."""
+    pl, kv_len = _checked(q, k, v, block_q, block_kv, causal, window, kv_len)
+    return _run(q, k, v, pl, block_q, block_kv, causal, window, return_lse,
+                kv_len)
 
 
 # ----------------------------------------------------------- live recording
@@ -304,8 +378,8 @@ def make_live(problem: Mapping | None = None, device: str | None = None):
                for n in (p["bh"], p["bh_kv"], p["bh_kv"]))
 
     def fn(conf: Mapping) -> None:
-        flash_attention(q, k, v, block_q=conf["block_q"],
-                        block_kv=conf["block_kv"], causal=True)
+        launch(q, k, v, block_q=conf["block_q"], block_kv=conf["block_kv"],
+               causal=True)
         if on_card:
             torch.cuda.synchronize(dev)
 

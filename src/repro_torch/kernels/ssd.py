@@ -18,6 +18,13 @@ and ``acc_dtype`` stay cost-model-only, as in the reference's
 state larger than ``MAX_N`` = 256) raises ``ConfigRejected`` before any
 launch, on the CPU as on the card. A chunk of any length runs: its cum
 goes through device memory, not shared memory.
+
+``ssd_scan`` goes through the operator ``torch.ops.repro_torch.ssd_scan``
+(``torch.library.custom_op``): its implementation is the three launches
+(the plain version on the CPU), its fake implementation the output
+shapes, its flop formula ``chunked_flops``, so the dry run traces models
+through it. ``launches`` counts as before; ``launch`` (``make_live``'s
+recordings) and a call with ``marks`` skip the dispatcher.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import ctypes
 from typing import Mapping, Sequence
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import cuda
 from ..core.costmodel import KernelWorkload, alignment_eff
@@ -135,25 +143,8 @@ def _outputs(y, h, states):
     return (y, *extra) if extra else y
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
-             final_state: bool = False, chunk_states: bool = False,
-             marks: Sequence | None = None):
-    """SSD scan for a flattened (batch·heads) leading dim, float32, the
-    reference's layout: x (BH, L, P); dt (BH, L); a (BH,); b/c (BH, L, N).
-    Returns y like x, or ``(y, h)`` with ``final_state``, h the (BH, N, P)
-    float32 state after the last step (pass 1 then also computes the last
-    chunk's state, and the state pass writes h); with ``chunk_states``
-    also (last) the (BH, L / chunk, N, P) float32 states h_c that enter
-    each chunk, the backward's input: the state scratch, which the state
-    pass leaves holding them, returned instead of freed (no launch more,
-    y unchanged). The three CUDA kernels for tensors on the card (a (BH,
-    L) cum and a (BH, L / chunk, N, P) state scratch allocated here),
-    ``ssd_plain`` for tensors on the CPU.
-    Raises ``ConfigRejected`` for a problem ``fits`` refuses, on either
-    device. ``marks``, four CUDA events, are recorded before the first
-    kernel and after each (so a caller can time the passes)."""
-    global launches
+def _checked(x, dt, a, b, c, chunk: int) -> None:
+    """Validate a call (shapes only, so it holds for fake tensors too)."""
     bh, l, p = x.shape
     n = b.shape[-1]
     if dt.shape != (bh, l) or a.shape != (bh,) or b.shape != (bh, l, n) \
@@ -173,13 +164,22 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                              f"csrc/ssd.cu")
     if len({t.device for t in (x, dt, a, b, c)}) != 1:
         raise ValueError("ssd_scan operands lie on different devices")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan runs on CUDA or the CPU, not {x.device}")
+
+
+def _run(x, dt, a, b, c, chunk: int, final_state: bool, chunk_states: bool,
+         marks=None):
+    """A checked call: the three kernels for tensors on the card,
+    ``ssd_plain`` for tensors on the CPU."""
+    global launches
     if x.device.type == "cpu":
         return ssd_plain(x, dt, a, b, c, chunk=chunk, final_state=final_state,
                          chunk_states=chunk_states)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on CUDA or the CPU, not {x.device}")
     if not all(t.is_contiguous() for t in (x, dt, a, b, c)):
         raise ValueError("ssd_scan takes contiguous tensors")
+    bh, l, p = x.shape
+    n = b.shape[-1]
     lib = _lib()
     y = torch.empty_like(x)
     cum = torch.empty((bh, l), dtype=torch.float32, device=x.device)
@@ -202,6 +202,77 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             marks[i + 1].record()
     launches += 1
     return _outputs(y, h, states if chunk_states else None)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _ssd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, chunk: int, final_state: bool,
+            chunk_states: bool) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The checked call as an operator PyTorch can trace: (y, h, states),
+    h and states empty tensors unless asked for."""
+    got = _run(x, dt, a, b, c, chunk, final_state, chunk_states)
+    got = got if isinstance(got, tuple) else (got,)
+    y, rest = got[0], list(got[1:])
+    empty = x.new_empty((0,))
+    h = rest.pop(0) if final_state else empty
+    states = rest.pop(0) if chunk_states else empty.clone()
+    return y, h, states
+
+
+@_ssd_op.register_fake
+def _(x, dt, a, b, c, chunk, final_state, chunk_states):
+    bh, l, p = x.shape
+    n = b.shape[-1]
+    h = x.new_empty((bh, n, p) if final_state else (0,))
+    states = x.new_empty((bh, l // chunk, n, p) if chunk_states else (0,))
+    return torch.empty_like(x), h, states
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _ssd_flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk,
+               *args, out_shape=None, **kwargs) -> int:
+    """``chunked_flops`` of the call."""
+    bh, l, p = x_shape
+    return int(chunked_flops(bh, l, p, b_shape[-1], chunk))
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128,
+             final_state: bool = False, chunk_states: bool = False,
+             marks: Sequence | None = None):
+    """SSD scan for a flattened (batch·heads) leading dim, float32, the
+    reference's layout: x (BH, L, P); dt (BH, L); a (BH,); b/c (BH, L, N).
+    Returns y like x, or ``(y, h)`` with ``final_state``, h the (BH, N, P)
+    float32 state after the last step (pass 1 then also computes the last
+    chunk's state, and the state pass writes h); with ``chunk_states``
+    also (last) the (BH, L / chunk, N, P) float32 states h_c that enter
+    each chunk, the backward's input: the state scratch, which the state
+    pass leaves holding them, returned instead of freed (no launch more,
+    y unchanged). The three CUDA kernels for tensors on the card (a (BH,
+    L) cum and a (BH, L / chunk, N, P) state scratch allocated here),
+    ``ssd_plain`` for tensors on the CPU, both through the operator
+    ``torch.ops.repro_torch.ssd_scan`` (fake tensors get their shapes and
+    ``chunked_flops`` without a launch).
+    Raises ``ConfigRejected`` for a problem ``fits`` refuses, on either
+    device. ``marks``, four CUDA events, are recorded before the first
+    kernel and after each (so a caller can time the passes); a call with
+    marks launches without the operator's dispatch."""
+    _checked(x, dt, a, b, c, chunk)
+    if marks:
+        return _run(x, dt, a, b, c, chunk, final_state, chunk_states, marks)
+    y, h, states = torch.ops.repro_torch.ssd_scan(x, dt, a, b, c, chunk,
+                                                  final_state, chunk_states)
+    return _outputs(y, h if final_state else None,
+                    states if chunk_states else None)
+
+
+def launch(x, dt, a, b, c, *, chunk: int = 128, final_state: bool = False,
+           chunk_states: bool = False):
+    """``ssd_scan`` without the operator's dispatch: the live objective's
+    call, so that no recording pays the dispatcher."""
+    _checked(x, dt, a, b, c, chunk)
+    return _run(x, dt, a, b, c, chunk, final_state, chunk_states)
 
 
 # ----------------------------------------------------------- live recording
@@ -243,7 +314,7 @@ def make_live(problem: Mapping | None = None, device: str | None = None):
     args = live_inputs(problem, dev)
 
     def fn(conf: Mapping) -> None:
-        ssd_scan(*args, chunk=conf["chunk"])
+        launch(*args, chunk=conf["chunk"])
         if on_card:
             torch.cuda.synchronize(dev)
 

@@ -45,12 +45,30 @@ probabilities in float32 for the PV product where the reference casts
 them to bf16 first (``:79``), so the two differ at bf16 level.
 ``attention_reference`` and ``decode_attention`` are plain PyTorch, as
 the reference computes them outside any kernel.
+
+DTensors (the dry run's fake world, phase 12's one-rank mesh): the
+kernel runs rank by rank on each shard (``local_map``), batch rows on the
+dp axes and q heads on tp, so its (B·H, S, D) reshape, which merges a
+dp-sharded with a tp-sharded dim, happens on local tensors; kv heads
+that do not divide as q's do are held whole and each rank slices the
+ones its q heads read. ``_flash_bwd`` is also the operator
+``repro_torch::flash_attention_bwd`` (shapes and a flop count for fake
+tensors). ``decode_attention`` of DTensor caches runs on the caches'
+shards: a head-dim shard sums its partial scores by an all-reduce, a
+sequence shard (context parallelism) combines each rank's max, sum and
+weighted values by all-reduces; with neither, each rank calls
+``decode_attention`` itself.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+from torch.utils.flop_counter import register_flop_formula
 
+from ..distribution.annotate import site_placements
 from ..kernels import flash_attention as fa
 
 NEG_INF = -1e30
@@ -112,6 +130,44 @@ def _flash_bwd(q, k, v, out, lse, dout, *, causal: bool, window,
             dv.to(v.dtype))
 
 
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  causal: bool, window: int, kv_len: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_flash_bwd`` as an operator (``window`` -1 is none), so that a
+    fake-tensor trace sees one op with its shapes and flop count."""
+    return _flash_bwd(q, k, v, out, lse, dout, causal=causal,
+                      window=None if window < 0 else window, kv_len=kv_len)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, out, lse, dout, causal, window, kv_len):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def bwd_flops(bh: int, sq: int, d: int, causal: bool, window, kv_len: int
+              ) -> int:
+    """Operations of ``_flash_bwd``: five products of depth d (scores, dv,
+    dp, dq, dk) over the (q row, key) pairs of each key block's visited
+    rows, an FMA being 2."""
+    pairs = 0
+    for k0 in range(0, kv_len, BWD_BLOCK_KV):
+        k1 = min(k0 + BWD_BLOCK_KV, kv_len)
+        q0 = k0 if causal else 0
+        q1 = sq if window is None else min(sq, k1 - 1 + window)
+        pairs += max(q1 - q0, 0) * (k1 - k0)
+    return 10 * bh * d * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, v_shape, out_shape_, lse_shape, dout_shape, causal,
+      window, kv_len, *args, out_shape=None, **kwargs) -> int:
+    bh, sq, d = q_shape
+    return bwd_flops(bh, sq, d, causal, None if window < 0 else window,
+                     kv_len)
+
+
 class _Flash(torch.autograd.Function):
     """The reference's ``_flash`` custom VJP: the kernel's forward (with
     its lse), ``_flash_bwd``'s backward."""
@@ -130,8 +186,9 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*_flash_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
-                            window=ctx.window, kv_len=ctx.kv_len),
+        return (*_flash_bwd_op(q, k, v, out, lse, dout, ctx.causal,
+                               -1 if ctx.window is None else ctx.window,
+                               ctx.kv_len),
                 None, None, None, None, None)
 
 
@@ -139,12 +196,68 @@ def _tile(s: int) -> int:
     return TILE if s >= TILE else SHORT_TILE
 
 
+def _kv_heads(coord: int, hq_local: int, group: int):
+    """The kv heads rank ``coord`` of a head-sharded q reads, for kv heads
+    held whole: a slice when its q heads fall into whole groups, else one
+    kv head a q head (group 1)."""
+    idx = [(coord * hq_local + i) // group for i in range(hq_local)]
+    n_kv = idx[-1] - idx[0] + 1
+    if hq_local % n_kv == 0 and all(
+            j == idx[0] + i // (hq_local // n_kv) for i, j in enumerate(idx)):
+        return slice(idx[0], idx[-1] + 1)
+    return idx
+
+
+def _sharded_attention(q, k, v, causal, window):
+    """``blockwise_attention`` of DTensors: each rank runs the kernel on
+    its shard, batch on the dp axes and q heads on tp (``local_map``), so
+    the kernels' (B·H, S, D) reshape happens on local tensors. k and v
+    share q's batch placements; they are head-sharded only where their
+    heads divide as q's do, else held whole and sliced to the kv heads
+    this rank's q heads read."""
+    qp = site_placements(q, "dp", None, "tp", None)
+    kvp, tp_dims = [], []
+    for i, p in enumerate(qp):
+        if p == Shard(2):
+            tp_dims.append(i)
+    n_tp = 1
+    for i in tp_dims:
+        n_tp *= q.device_mesh.size(i)
+    h, hkv = q.shape[2], k.shape[2]
+    kv_sharded = hkv % n_tp == 0
+    for p in qp:
+        kvp.append(p if p != Shard(2) or kv_sharded else Replicate())
+    kvp = tuple(kvp)
+    sel = None
+    if tp_dims and not kv_sharded:
+        coord = 0
+        mine = q.device_mesh.get_coordinate()
+        for i in tp_dims:
+            coord = coord * q.device_mesh.size(i) + mine[i]
+        sel = _kv_heads(coord, h // n_tp, h // hkv)
+
+    def local(ql, kl, vl):
+        if sel is not None:
+            kl, vl = kl[:, :, sel], vl[:, :, sel]
+        return blockwise_attention(ql, kl, vl, causal=causal, window=window)
+
+    q, k, v = (t.redistribute(t.device_mesh, pl)
+               for t, pl in ((q, qp), (k, kvp), (v, kvp)))
+    # local_map: a list of placements a tensor, a tuple of them a call
+    return local_map(local, out_placements=list(qp),
+                     in_placements=(list(qp), list(kvp), list(kvp)))(q, k, v)
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: int | None = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, Hkv, D), Skv == Sq under a causal
     or window mask. Returns (B, Sq, H, D), one ``flash_attention`` call;
-    through ``_Flash`` (differentiable) when an input needs a gradient."""
+    through ``_Flash`` (differentiable) when an input needs a gradient.
+    DTensors go through ``_sharded_attention``: one call a rank on its
+    shard."""
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal, window)
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1:3]
     if (causal or window is not None) and sq != skv:
@@ -188,6 +301,71 @@ def attention_reference(q, k, v, *, causal=True,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf.float()).to(q.dtype)
 
 
+def _sharded_decode(q, k_cache, v_cache, cache_len, window):
+    """``decode_attention`` of DTensor caches, rank by rank on the caches'
+    own shards (``local_map``; q and the output are laid out to match):
+    batch rows on dp, kv heads on tp, or the head dim on tp (each rank's
+    partial scores summed by an all-reduce before the softmax), or the
+    sequence on dp (context parallelism: each rank's max, sum and
+    weighted values combined by all-reduces, the softmax of the whole
+    row without gathering the cache). With none of the last two the
+    local call is ``decode_attention`` itself."""
+    mesh, cp = k_cache.device_mesh, tuple(k_cache.placements)
+    as_q = {0: Shard(0), 2: Shard(2), 3: Shard(3)}  # cache dim -> q's
+    qp = tuple(as_q.get(p.dim, Replicate()) if isinstance(p, Shard)
+               else Replicate() for p in cp)
+    head_dims = [i for i, p in enumerate(cp) if p == Shard(3)]
+    seq_dims = [i for i, p in enumerate(cp) if p == Shard(1)]
+    if not isinstance(cache_len, DTensor):
+        cache_len = DTensor.from_local(
+            torch.as_tensor(cache_len, device=q.device.type).broadcast_to(
+                q.shape[:1]).contiguous(), mesh, (Replicate(),) * mesh.ndim,
+            run_check=False)
+    lp = tuple(Shard(0) if p == Shard(0) else Replicate() for p in cp)
+    d = q.shape[-1]
+    s_local = k_cache.shape[1]
+    coord = 0
+    for i in seq_dims:
+        coord = coord * mesh.size(i) + mesh.get_coordinate()[i]
+        s_local //= mesh.size(i)
+
+    def local(ql, kl, vl, cl):
+        if not head_dims and not seq_dims:
+            return decode_attention(ql, kl, vl, cl, window=window)
+        b, _, h, dl = ql.shape
+        hkv = kl.shape[2]
+        qg = ql.reshape(b, hkv, h // hkv, dl)
+        s = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                         kl.float()) * (d ** -0.5)
+        for i in head_dims:
+            s = funcol.all_reduce(s, "sum", (mesh, i))
+        kv_pos = coord * s_local + torch.arange(s_local, device=ql.device)
+        valid = kv_pos[None, :] < cl[:, None]
+        if window is not None:
+            valid &= (cl[:, None] - 1 - kv_pos[None, :]) < window
+        s = torch.where(valid[:, None, None, :], s, NEG_INF)
+        m = s.amax(-1, keepdim=True)
+        for i in seq_dims:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        e = torch.exp(s - m)
+        total = e.sum(-1, keepdim=True)
+        o = torch.einsum("bkgs,bskd->bkgd", e.to(vl.dtype).float(),
+                         vl.float())
+        for i in seq_dims:
+            total = funcol.all_reduce(total, "sum", (mesh, i))
+            o = funcol.all_reduce(o, "sum", (mesh, i))
+        return (o / total).reshape(b, 1, h, dl).to(ql.dtype)
+
+    q = q.redistribute(mesh, qp)
+    cache_len = cache_len.redistribute(mesh, lp)
+    out = local_map(local, out_placements=list(qp),
+                    in_placements=(list(qp), list(cp), list(cp), list(lp)))(
+        q, k_cache, v_cache, cache_len)
+    # whole heads again: a head-dim shard cannot merge into (H·D)
+    return out.redistribute(mesh, tuple(Replicate() if p == Shard(3) else p
+                                        for p in qp))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      window: int | None = None) -> torch.Tensor:
@@ -196,8 +374,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, 1, H, D); caches: (B, S_max, Hkv, D); cache_len: (B,) or scalar —
     number of valid cache entries *including* the current token. Products
     sum in float32 from the compute-dtype operands, as the reference's
-    ``preferred_element_type=float32`` einsums do.
+    ``preferred_element_type=float32`` einsums do. DTensor caches go
+    through ``_sharded_decode``.
     """
+    if isinstance(k_cache, DTensor):
+        return _sharded_decode(q, k_cache, v_cache, cache_len, window)
     b, _, h, d = q.shape
     _, smax, hkv, _ = k_cache.shape
     g = h // hkv

@@ -29,14 +29,26 @@ gradient. The per-head expansion of B and C, ``a``'s repeat over the
 batch and the padding stay outside, so autograd sums their gradients. A
 call whose inputs need no gradient (serving) goes straight to the
 kernel.
+
+DTensors: the scan runs rank by rank on each shard (``local_map``),
+batch rows on the dp axes and heads on tp, so the (B·H, S, ...) layout
+and the per-head copies of B and C hold the local rows and heads only.
+``_ssd_bwd`` is also the operator ``repro_torch::ssd_scan_bwd`` (shapes
+and a flop count for fake tensors). ``in_proj``'s output carries the
+reference's ``annotate`` pin.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+from torch.utils.flop_counter import register_flop_formula
 
 from ..configs.base import ArchConfig
+from ..distribution.annotate import (annotate, merge_last, site_placements,
+                                     split_last)
 from ..kernels import ssd as ssd_kernel
 from .layers import dense_init, param, rmsnorm
 
@@ -61,7 +73,19 @@ def _split(cfg: ArchConfig, proj: torch.Tensor) -> tuple:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv, width K: x (B,S,C), w (K,C)."""
+    """Depthwise causal conv, width K: x (B,S,C), w (K,C). DTensors: rank
+    by rank on each shard (``local_map``), batch rows on dp and channels
+    on tp, the sequence whole (DTensor's pad of a sharded tensor is not
+    dependable across PyTorch versions)."""
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        xp = site_placements(x, "dp", None, "tp")
+        wp = tuple(Shard(1) if p == Shard(2) else Replicate() for p in xp)
+        bp = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xp)
+        return local_map(_causal_conv, out_placements=list(xp),
+                         in_placements=(list(xp), list(wp), list(bp)))(
+            x.redistribute(mesh, xp), w.redistribute(mesh, wp),
+            b.redistribute(mesh, bp))
     k = w.shape[0]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
@@ -136,6 +160,35 @@ def _ssd_bwd(x, dt, a, b, c, h_in, dy, dh, chunk: int) -> tuple:
             db.reshape(bh, l, n), dc.reshape(bh, l, n))
 
 
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _ssd_bwd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, h_in: torch.Tensor,
+                dy: torch.Tensor, dh: torch.Tensor | None, chunk: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor, torch.Tensor]:
+    """``_ssd_bwd`` as an operator, so that a fake-tensor trace sees one op
+    with its shapes and flop count."""
+    return _ssd_bwd(x, dt, a, b, c, h_in, dy, dh, chunk)
+
+
+@_ssd_bwd_op.register_fake
+def _(x, dt, a, b, c, h_in, dy, dh, chunk):
+    return (torch.empty_like(x), torch.empty_like(dt), torch.empty_like(a),
+            torch.empty_like(b), torch.empty_like(c))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _(x_shape, dt_shape, a_shape, b_shape, c_shape, h_shape, dy_shape,
+      dh_shape, chunk, *args, out_shape=None, **kwargs) -> int:
+    """Operations of ``_ssd_bwd``'s products a (row, chunk), an FMA being
+    2: five of Q x Q pairs (C B^T, dW, dX of depth P; dC, dB of depth N),
+    five of Q x N x P (the inter-chunk and state terms)."""
+    bh, l, p = x_shape
+    n = b_shape[-1]
+    return bh * (l // chunk) * (2 * chunk * chunk * (3 * n + 2 * p)
+                                + 10 * chunk * n * p)
+
+
 class _SSDScan(torch.autograd.Function):
     """The scan's forward by the kernels (``ssd_scan``, which also returns
     the chunks' incoming states), ``_ssd_bwd``'s backward. Returns y, or
@@ -152,19 +205,48 @@ class _SSDScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh=None):
         x, dt, a, b, c, h_in = ctx.saved_tensors
-        return (*_ssd_bwd(x, dt, a, b, c, h_in, dy, dh, ctx.chunk), None,
+        return (*_ssd_bwd_op(x, dt, a, b, c, h_in, dy, dh, ctx.chunk), None,
                 None)
+
+
+def _sharded_ssd(x, dt, a, bmat, cmat, chunk: int, final_state: bool):
+    """``_ssd_chunked`` of DTensors: each rank scans its shard, batch on
+    the dp axes and heads on tp (``local_map``), so the kernels' (B·H, S,
+    ...) layout and the per-head copies of B and C are made of the local
+    batch rows and heads."""
+    xp = site_placements(x, "dp", None, "tp", None)
+    # x's placement on each mesh dim decides the others'
+    rule = {Shard(0): (Shard(0), Replicate(), Shard(0), Shard(0)),
+            Shard(2): (Shard(2), Shard(0), Replicate(), Shard(1))}
+    rep = (Replicate(),) * 4
+    dtp, ap, bcp, hp = (tuple(rule.get(p, rep)[j] for p in xp)
+                        for j in range(4))
+    x, dt, a, bmat, cmat = (t.redistribute(t.device_mesh, pl) for t, pl in (
+        (x, xp), (dt, dtp), (a, ap), (bmat, bcp), (cmat, bcp)))
+
+    def local(*args):
+        y, h = _ssd_chunked(*args, chunk, final_state)
+        return (y, h) if final_state else y
+
+    out = local_map(local, out_placements=(list(xp), list(hp))
+                    if final_state else list(xp),
+                    in_placements=tuple(map(list, (xp, dtp, ap, bcp, bcp))))(
+        x, dt, a, bmat, cmat)
+    return out if final_state else (out, None)
 
 
 def _ssd_chunked(x, dt, a, bmat, cmat, chunk: int,
                  final_state: bool = True) -> tuple:
     """Chunked SSD scan, one ``ssd_scan`` call (through ``_SSDScan`` when
-    an input needs a gradient).
+    an input needs a gradient; DTensors through ``_sharded_ssd``, one
+    call a rank).
 
     x: (B, S, H, P); dt: (B, S, H); a: (H,) negative; b/c: (B, S, N).
     Returns (y, h_final) with y like x, h (B, H, N, P) fp32, or None
     without ``final_state``.
     """
+    if isinstance(x, DTensor):
+        return _sharded_ssd(x, dt, a, bmat, cmat, chunk, final_state)
     bsz, s, nh, p = x.shape
     n = bmat.shape[-1]
     if s % chunk:
@@ -218,7 +300,8 @@ class Mamba(nn.Module):
         cfg = self.cfg
         d_in, nh, hd, n = dims(cfg)
         dt_ = x.dtype
-        proj = x @ self.in_proj.to(dt_)
+        x = annotate(x, "dp", None, None)  # whole sequences (2d_seq)
+        proj = annotate(x @ self.in_proj.to(dt_), "dp", None, "tp")
         z, xbc, dt_raw = _split(cfg, proj)
         xbc_raw = xbc
         xbc = _causal_conv(xbc, self.conv_w, self.conv_b)
@@ -234,11 +317,11 @@ class Mamba(nn.Module):
         if pad:
             xs, dt, bmat, cmat = (F.pad(t, (0, 0, 0, pad))
                                   for t in (xs, dt, bmat, cmat))
-        xh = xs.reshape(bsz, s + pad, nh, hd)
+        xh = split_last(xs, nh, hd)
         y, h_final = _ssd_chunked(xh, dt, a, bmat, cmat, chunk,
                                   final_state=return_cache)
         y = y + self.D.to(y.dtype)[None, None, :, None] * xh  # skip
-        y = y.reshape(bsz, s + pad, d_in)[:, :s]
+        y = merge_last(y)[:, :s]
         y = rmsnorm(y * F.silu(z), self.gate_norm)            # gated norm
         out = y @ self.out_proj.to(dt_)
         if not return_cache:

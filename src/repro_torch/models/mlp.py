@@ -5,8 +5,8 @@ the ``MLP`` module and ``make_moe`` / ``apply_moe`` the ``MoE`` module,
 with the reference's parameter names (``wi``, ``wg``, ``wo``; the MoE's
 ``router`` (d, E), ``wi`` / ``wg`` (E, d, ff), ``wo`` (E, ff, d)), shapes
 and arithmetic: products in the compute dtype, left to ``torch.matmul``
-and ``torch.einsum`` as the reference leaves them to XLA. Its
-``annotate`` sharding hints are no-ops without a mesh and are left out.
+and ``torch.einsum`` as the reference leaves them to XLA, with the
+reference's ``annotate`` layout pins (no-ops without a mesh).
 
 MoE is the reference's per-row capacity dispatch, step for step (no
 kernel of the reference's computes it, so none of the port's does): the
@@ -25,8 +25,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
+from ..distribution.annotate import annotate, site_placements
 from .layers import activation, dense_init, param
 
 
@@ -42,8 +45,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        up = x @ self.wi.to(dt)
-        gate = x @ self.wg.to(dt) if self.wg is not None else None
+        x = annotate(x, "dp", None, None)  # whole sequences (2d_seq)
+        up = annotate(x @ self.wi.to(dt), "dp", None, "tp")
+        gate = (annotate(x @ self.wg.to(dt), "dp", None, "tp")
+                if self.wg is not None else None)
         return activation(self.cfg, gate, up) @ self.wo.to(dt)
 
 
@@ -66,15 +71,18 @@ class MoE(nn.Module):
         self.wg = (normal(e, d, ff, scale=d ** -0.5)
                    if cfg.act in ("swiglu", "geglu") else None)
 
-    def route(self, x: torch.Tensor) -> tuple:
+    def route(self, x: torch.Tensor, router: torch.Tensor | None = None
+              ) -> tuple:
         """(top_p (B, S, K) float32 renormalised, top_e (B, S, K), pos
         (B, S, K) each choice's slot in its expert, keep (B, S, K): the
-        slot lies below the capacity ``cap``), and ``cap``."""
+        slot lies below the capacity ``cap``), and ``cap``. ``router``:
+        the router's weight (default the module's own)."""
         cfg = self.cfg
         b, s, _ = x.shape
         e, k = cfg.n_experts, cfg.top_k
         cap = int(-(-s * k * cfg.capacity_factor // e))
-        logits = (x @ self.router.to(x.dtype)).float()           # (B,S,E)
+        router = self.router if router is None else router
+        logits = (x @ router.to(x.dtype)).float()                # (B,S,E)
         probs = torch.softmax(logits, dim=-1)
         # the lower expert first among equal probabilities, as lax.top_k
         top_p, top_e = torch.sort(probs, dim=-1, descending=True,
@@ -92,12 +100,13 @@ class MoE(nn.Module):
         pos = pos.reshape(b, s, k)
         return top_p, top_e, pos, pos < cap, cap
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, S, D) -> (B, S, D)."""
+    def _dispatch(self, x, router) -> tuple:
+        """Route each row and scatter its kept choices into a (B, E, cap,
+        D) buffer: (buf, top_p, top_e, pos_c, keep)."""
         cfg = self.cfg
         b, s, d = x.shape
         dt = x.dtype
-        top_p, top_e, pos, keep, cap = self.route(x)
+        top_p, top_e, pos, keep, cap = self.route(x, router)
         pos_c = torch.clamp_max(pos, cap - 1)
         rows = torch.arange(b, device=x.device)[:, None]
         buf = torch.zeros((b, cfg.n_experts, cap, d), dtype=dt,
@@ -106,14 +115,47 @@ class MoE(nn.Module):
             contrib = torch.where(keep[:, :, kk, None], x, 0).to(dt)
             buf = buf.index_put((rows, top_e[:, :, kk], pos_c[:, :, kk]),
                                 contrib, accumulate=True)
+        return buf, top_p, top_e, pos_c, keep
+
+    def _experts(self, buf):
+        dt = buf.dtype
         up = torch.einsum("becd,edf->becf", buf, self.wi.to(dt))
         gate = (torch.einsum("becd,edf->becf", buf, self.wg.to(dt))
                 if self.wg is not None else None)
-        out = torch.einsum("becf,efd->becd", activation(cfg, gate, up),
-                           self.wo.to(dt))
-        y = torch.zeros((b, s, d), dtype=dt, device=x.device)
-        for kk in range(cfg.top_k):
+        return torch.einsum("becf,efd->becd",
+                            activation(self.cfg, gate, up), self.wo.to(dt))
+
+    def _combine(self, out, top_p, top_e, pos_c, keep):
+        """Each token's K expert outputs, weighted: (B, S, D)."""
+        b, s = top_e.shape[:2]
+        rows = torch.arange(b, device=out.device)[:, None]
+        y = torch.zeros((b, s, out.shape[-1]), dtype=out.dtype,
+                        device=out.device)
+        for kk in range(self.cfg.top_k):
             gathered = out[rows, top_e[:, :, kk], pos_c[:, :, kk]]
-            w = (top_p[:, :, kk, None] * keep[:, :, kk, None]).to(dt)
+            w = (top_p[:, :, kk, None] * keep[:, :, kk, None]).to(out.dtype)
             y = y + gathered * w
         return y
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, S, D) -> (B, S, D). DTensors: the dispatch and the
+        combine run on each rank's batch rows (``local_map``; the router
+        is gathered whole), the expert products on DTensors (experts on
+        tp where they divide, as the reference's all-to-all lays them
+        out), and the products' output is gathered back to batch rows
+        before the combine (an explicit ``redistribute``)."""
+        if not isinstance(x, DTensor):
+            buf, *routing = self._dispatch(x, self.router)
+            return self._combine(self._experts(buf), *routing)
+        mesh = x.device_mesh
+        rows = site_placements(x, "dp", None, None)
+        whole = (Replicate(),) * mesh.ndim
+        x = x.redistribute(mesh, rows)
+        router = self.router.redistribute(mesh, whole)
+        buf, *routing = local_map(
+            self._dispatch, out_placements=(list(rows),) * 5,
+            in_placements=(list(rows), list(whole)))(x, router)
+        out = self._experts(annotate(buf, "dp", "tp", None, None))
+        out = out.redistribute(mesh, rows)
+        return local_map(self._combine, out_placements=list(rows),
+                         in_placements=(list(rows),) * 5)(out, *routing)

@@ -52,19 +52,37 @@ What changed:
   * ``init_params`` takes a ``torch.Generator`` and a device (the card
     unless ``"cpu"`` is asked for); the weights are trainable
     parameters.
+  * Distribution: the reference's ``annotate`` pins stand where it has
+    them (q, k, v after their projections, each block's input, the
+    embedded tokens); DTensor parameters (``distribution.sharding``)
+    run the same code. What DTensor needs beyond the pins: sequences
+    gathered before each projection and each sublayer's output pinned
+    whole before its residual add (``_whole``; GSPMD places these
+    itself under 2d_seq), heads split and merged only along whole-head
+    shards (``split_last``, ``merge_last``), positions laid out as the
+    batch rows (``rows_like``), a vocab-parallel embedding lookup
+    (``_embed_sharded``), prefill's cache made as sharded zeros, and
+    decode's cache writes rank by rank (``_write_kv``).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import cuda
 from ..configs.base import ArchConfig
+from ..distribution.annotate import (annotate, current_layout, merge_last,
+                                     pin_grad, reinstall, rows_like,
+                                     site_placements, split_last)
+from ..distribution.sharding import cache_shardings, sharded_zeros
 from .attention import blockwise_attention, decode_attention
 from .layers import (COMPUTE_DTYPE, Norm, apply_rope, dense_init,
                      embed_init, param, rope_angles, softcap)
@@ -93,18 +111,19 @@ class Attention(nn.Module):
                                    device=device))
 
     def _project_q(self, x: torch.Tensor) -> torch.Tensor:
-        b, s, _ = x.shape
-        return (x @ self.wq.to(x.dtype)).reshape(b, s, self.cfg.n_heads,
-                                                  self.cfg.d_head)
+        x = annotate(x, "dp", None, None)  # whole sequences (2d_seq)
+        q = split_last(x @ self.wq.to(x.dtype), self.cfg.n_heads,
+                       self.cfg.d_head)
+        return annotate(q, "dp", None, "tp", None)
 
     def project_kv(self, src: torch.Tensor) -> tuple:
         """k and v of ``src`` (B, Skv, D), each (B, Skv, Hkv, Dh), without
         RoPE: the audio cross-attention's static cache."""
         cfg = self.cfg
-        b, skv, _ = src.shape
+        src = annotate(src, "dp", None, None)  # whole sequences (2d_seq)
         dt = src.dtype
-        return tuple((src @ w.to(dt)).reshape(b, skv, cfg.n_kv_heads,
-                                              cfg.d_head)
+        return tuple(annotate(split_last(src @ w.to(dt), cfg.n_kv_heads,
+                                         cfg.d_head), "dp", None, "tp", None)
                      for w in (self.wk, self.wv))
 
     def forward(self, x, positions, *, causal=True, window=None, rope=True,
@@ -121,8 +140,7 @@ class Attention(nn.Module):
             q = apply_rope(q, ang)
             k = apply_rope(k, ang)
         out = blockwise_attention(q, k, v, causal=causal, window=window)
-        b, s, _, _ = q.shape
-        return out.reshape(b, s, -1) @ self.wo.to(x.dtype), (k, v)
+        return merge_last(out) @ self.wo.to(x.dtype), (k, v)
 
     def decode(self, x, cache_k, cache_v, idx, *, window=None, rope=True,
                cross=False):
@@ -135,7 +153,7 @@ class Attention(nn.Module):
         q = self._project_q(x)
         k, v = (None, None) if cross else self.project_kv(x)
         if rope:
-            pos = idx[:, None]
+            pos = rows_like(idx[:, None], x)
             if cfg.m_rope:
                 pos = pos[..., None].expand(b, 1, 3)
             ang = rope_angles(cfg, pos)
@@ -145,13 +163,58 @@ class Attention(nn.Module):
         if cross:
             total_len = cache_k.shape[1]  # the whole encoder output
         else:
-            rows = torch.arange(b, device=x.device)
-            cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
-            cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
+            _write_kv(cache_k, cache_v, k[:, 0], v[:, 0], idx)
             total_len = idx + 1
         out = decode_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                                total_len, window=window)
         return out.reshape(b, 1, -1) @ self.wo.to(x.dtype)
+
+
+def _write_kv(cache_k, cache_v, k, v, idx) -> None:
+    """Write one step's k and v (B, Hkv, Dh) into the caches (B, Smax,
+    Hkv, Dh) at the positions ``idx`` (B,), in place. DTensor caches are
+    written rank by rank into the local shards: k and v are laid out as
+    the caches' batch and head dims, and where the sequence is sharded
+    (context parallelism) each rank rewrites the one slot ``idx`` clamps
+    to in its slice, with the new value only where ``idx`` falls in it,
+    so no value decides which rank writes."""
+    if not isinstance(cache_k, DTensor):
+        rows = torch.arange(k.shape[0], device=k.device)
+        cache_k[rows, idx] = k.to(cache_k.dtype)
+        cache_v[rows, idx] = v.to(cache_v.dtype)
+        return
+    mesh, cp = cache_k.device_mesh, cache_k.placements
+    # cache dim d -> the step's dim (B, Hkv, Dh lose the sequence)
+    step_dim = {0: 0, 2: 1, 3: 2}
+    kp = tuple(Shard(step_dim[p.dim]) if isinstance(p, Shard)
+               and p.dim != 1 else Replicate() for p in cp)
+    ip = tuple(p if p == Shard(0) else Replicate() for p in cp)
+    k, v = (t.redistribute(mesh, kp).to_local() for t in (k, v))
+    if not isinstance(idx, DTensor):
+        idx = DTensor.from_local(idx, mesh, (Replicate(),) * mesh.ndim,
+                                 run_check=False)
+    idx = idx.redistribute(mesh, ip).to_local()
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    s_local = ck.shape[1]
+    coord, seq_dims = 0, [i for i, p in enumerate(cp) if p == Shard(1)]
+    for i in seq_dims:
+        coord = coord * mesh.size(i) + mesh.get_coordinate()[i]
+    pos = idx - coord * s_local
+    inside = ((pos >= 0) & (pos < s_local))[:, None, None]
+    pos = pos.clamp(0, s_local - 1)
+    rows = torch.arange(ck.shape[0], device=ck.device)
+    for cache, new in ((ck, k), (cv, v)):
+        cache[rows, pos] = torch.where(inside, new.to(cache.dtype),
+                                       cache[rows, pos])
+
+
+def _whole(h):
+    """A sublayer's output pinned whole in its sequence before the
+    residual add: under sequence parallelism (2d_seq) the add then slices
+    it, and the backward gathers the sequence-sharded gradient before the
+    products, which DTensor cannot run on a sequence shard folded into
+    their rows (GSPMD gathers there by itself)."""
+    return annotate(h, "dp", None, None)
 
 
 # -------------------------------------------------------------- layer bodies
@@ -177,16 +240,17 @@ class Block(nn.Module):
 
     def _ffn(self, x):
         z = self.norm2(x)
-        return x + (self.mlp(z) if self.moe is None else self.moe(z))
+        return x + _whole(self.mlp(z) if self.moe is None else self.moe(z))
 
     def _body(self, x, positions, window, causal, enc_out) -> tuple:
+        x = annotate(x, "dp", "sp", None)
         h, kv = self.attn(self.norm1(x), positions, causal=causal,
                           window=window)
-        x = x + h
+        x = x + _whole(h)
         if self.xattn is not None:
             h, _ = self.xattn(self.norm_x(x), positions, causal=False,
                               rope=False, kv_src=enc_out)
-            x = x + h
+            x = x + _whole(h)
         return self._ffn(x), kv
 
     def prefill(self, x, positions, *, window=None, enc_out=None) -> tuple:
@@ -216,11 +280,13 @@ class MambaBlock(nn.Module):
 
     def prefill(self, x) -> tuple:
         """(x, (conv_state, ssm_state))."""
+        x = annotate(x, "dp", "sp", None)
         h, cache = self.mamba(self.norm(x), return_cache=True)
-        return x + h, cache
+        return x + _whole(h), cache
 
     def forward(self, x):
-        return x + self.mamba(self.norm(x))[0]
+        x = annotate(x, "dp", "sp", None)
+        return x + _whole(self.mamba(self.norm(x))[0])
 
     def decode(self, x, conv, ssm) -> tuple:
         h, conv, ssm = self.mamba.decode(conv, ssm, self.norm(x))
@@ -284,15 +350,49 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
 
 
 # ------------------------------------------------------------------ helpers
+def _embed_sharded(embed, tokens) -> torch.Tensor:
+    """``embed[tokens]`` in the compute dtype for DTensors: the table
+    gathered on its model dim (FSDP), each rank looks up the tokens of
+    its batch rows in its own vocab shard (zero rows elsewhere), and the
+    shards' rows are summed (``Partial``: one rank holds each token's
+    row, so the sum is exact)."""
+    mesh = embed.device_mesh
+    vocab = tuple(Shard(0) if p == Shard(0) else Replicate()
+                  for p in embed.placements)
+    # a mesh dim that shards the vocab sees every token
+    tok = tuple(Replicate() if v == Shard(0) else t for v, t in zip(
+        vocab, site_placements(tokens, "dp", None)))
+    out = tuple(Partial() if v == Shard(0) else t for t, v in zip(tok, vocab))
+    coord, n_v = 0, embed.shape[0]
+    for i, p in enumerate(vocab):
+        if p == Shard(0):
+            coord = coord * mesh.size(i) + mesh.get_coordinate()[i]
+            n_v //= mesh.size(i)
+
+    def local(table, ids):
+        ids = ids - coord * n_v
+        inside = (ids >= 0) & (ids < n_v)
+        rows = table[ids.clamp(0, n_v - 1)].to(COMPUTE_DTYPE)
+        return torch.where(inside[..., None], rows, 0)
+
+    return local_map(local, out_placements=list(out),
+                     in_placements=(list(vocab), list(tok)))(
+        embed.redistribute(mesh, vocab), tokens.redistribute(mesh, tok))
+
+
 def _embed(cfg: ArchConfig, params: Model, tokens) -> torch.Tensor:
-    x = params.embed[tokens].to(COMPUTE_DTYPE)  # the rows, then the cast
+    if isinstance(params.embed, DTensor):
+        x = _embed_sharded(params.embed, tokens)
+    else:
+        x = params.embed[tokens].to(COMPUTE_DTYPE)  # the rows, then the cast
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
-    return x
+    # the vocab-sharded gather can leave its output unsharded; pin it
+    return annotate(x, "dp", None, None)
 
 
 def _unembed(cfg: ArchConfig, params: Model, x) -> torch.Tensor:
-    w = (params.embed.T if cfg.tie_embeddings
+    w = (pin_grad(params.embed).T if cfg.tie_embeddings
          else params.unembed).to(x.dtype)
     return softcap((x @ w).float(), cfg.logits_softcap)
 
@@ -318,7 +418,8 @@ def _positions(cfg: ArchConfig, batch: dict, tokens) -> torch.Tensor:
         return batch["positions"]
     b, s = tokens.shape
     pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
-    return pos[..., None].expand(b, s, 3) if cfg.m_rope else pos
+    return rows_like(pos[..., None].expand(b, s, 3) if cfg.m_rope else pos,
+                     tokens)
 
 
 def _encoder_forward(cfg: ArchConfig, params: Model,
@@ -327,7 +428,8 @@ def _encoder_forward(cfg: ArchConfig, params: Model,
     ``enc_norm``."""
     x = audio_embeds.to(COMPUTE_DTYPE)
     b, t, _ = x.shape
-    pos = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    pos = rows_like(torch.arange(t, device=x.device)[None, :].expand(b, t),
+                    x)
     for blk in params.encoder:
         x = blk(x, pos, causal=False, window=cfg.window)
     return params.enc_norm(x)
@@ -352,18 +454,41 @@ def _inputs(cfg: ArchConfig, params: Model, batch: dict) -> tuple:
 _PRODUCTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
+class _Both:
+    """Two context managers entered and left as one."""
+
+    def __init__(self, first, second):
+        self.cms = (first, second)
+        self.stack = contextlib.ExitStack()
+
+    def __enter__(self):
+        for cm in self.cms:
+            self.stack.enter_context(cm)
+        return self
+
+    def __exit__(self, *exc):
+        return self.stack.__exit__(*exc)
+
+
+def _remat_contexts(remat: str) -> tuple:
+    """(forward, recompute) contexts of a rematerialised layer: "dots"
+    keeps the products' outputs; either recomputes under the annotation
+    mesh the forward ran under."""
+    fwd, rec = (create_selective_checkpoint_contexts(_PRODUCTS)
+                if remat == "dots" else
+                (contextlib.nullcontext(), contextlib.nullcontext()))
+    return fwd, _Both(rec, reinstall())
+
+
 def _maybe_remat(fn, remat: str):
     """``fn`` as the reference's ``_maybe_remat`` wraps a layer body."""
     if remat == "none":
         return fn
-    if remat == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    if remat == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                         _PRODUCTS))
-    raise ValueError(f"remat must be none, dots or full, not {remat!r}")
+    if remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, dots or full, not {remat!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=functools.partial(_remat_contexts,
+                                                          remat))
 
 
 def _layers(cfg: ArchConfig, params: Model, x, positions, collect: bool,
@@ -415,7 +540,7 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *,
     itself)."""
     x, positions, enc_out = _inputs(cfg, params, batch)
     x, _, _ = _layers(cfg, params, x, positions, False, remat, enc_out)
-    x = params.final_norm(x)
+    x = params.final_norm(annotate(x, "dp", None, None))
     return x if pre_logits else _unembed(cfg, params, x)
 
 
@@ -426,8 +551,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     k/v (sites, B, max_len, Hkv, Dh) bf16 (audio: also the static
     cross-attention xk/xv (L, B, n_audio_frames, Hkv, Dh)); Mamba conv
     (layers, B, K-1, C) bf16 and ssm (layers, B, H, N, P) fp32 (hybrid:
-    groups (n_groups, every, ...), tail, shared)."""
-    dev = cuda.resolve_device(device)
+    groups (n_groups, every, ...), tail, shared). ``device="meta"``
+    gives the shapes alone."""
+    dev = "meta" if device == "meta" else cuda.resolve_device(device)
     hkv, dh, n_layers = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
 
     def kv(n):
@@ -489,7 +615,13 @@ def prefill(cfg: ArchConfig, params: Model, batch: dict, max_len: int):
                          f"{max_len}")
     x, positions, enc_out = _inputs(cfg, params, batch)
     x, kvs, mcs = _layers(cfg, params, x, positions, True, enc_out=enc_out)
-    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    if isinstance(tokens, DTensor):  # each rank allocates its shard
+        mesh = tokens.device_mesh
+        cache = init_cache(cfg, b, max_len, device="meta")
+        cache = sharded_zeros(cache, mesh, cache_shardings(
+            mesh, cache, b, current_layout()), tokens.device)
+    else:
+        cache = init_cache(cfg, b, max_len, device=tokens.device)
     if enc_out is not None:
         # the static cross-attention caches: each layer's k, v of the
         # encoder's output (as many frames as it has)

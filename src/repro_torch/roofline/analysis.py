@@ -23,11 +23,21 @@ the port imports nothing of ``repro``. Unchanged, constants included:
 the reference, because the roofline surrogate
 (``scenarios/surrogate.py``) normalises every device model into that
 frame. They are not the card's numbers.
+
+Added: ``collectives_from_comm`` prices the collectives DTensor issued in
+the port's dry run (``CommRecorder``, a ``CommDebugMode`` that keeps each
+collective's payload and group) with the same ring model as
+``parse_collectives``, which stays for HLO text.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
+
+from torch.distributed.distributed_c10d import _resolve_process_group
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs import ArchConfig, ShapeConfig
 
@@ -168,6 +178,77 @@ def parse_collectives(hlo_text: str, n_chips: int) -> CollectiveSummary:
     total = sum(wire.values())
     return CollectiveSummary({k: round(v, 1) for k, v in counts.items()},
                              wire, total)
+
+
+# DTensor's collectives as ``CommDebugMode`` sees them (functional ops of
+# ``_c10d_functional``, DTensor's own shard-dim all-to-all) -> HLO names
+_COMM_OPS = {
+    "all_gather_into_tensor": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_reduce": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+}
+
+
+class CommRecorder(CommDebugMode):
+    """``CommDebugMode`` that also records each collective's payload (its
+    output's bytes, the gathered or scattered result, as the HLO parser
+    prices it) and its process group: ``records`` is a list of (HLO
+    name, payload bytes, group name); ``get_comm_counts()`` counts as
+    ``CommDebugMode``'s does. It leaves out ``CommDebugMode``'s module
+    tracker, which fails on a module called twice in one step (zamba2's
+    shared block)."""
+
+    def __init__(self):
+        super().__init__()
+        self.records: list = []
+
+    def __enter__(self):
+        self.comm_counts.clear()
+        self.records = []
+        TorchDispatchMode.__enter__(self)
+        return self
+
+    def __exit__(self, *args):
+        TorchDispatchMode.__exit__(self, *args)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t is DTensor for t in types):
+            return NotImplemented  # DTensor turns it into local ops first
+        out = func(*args, **(kwargs or {}))
+        op = _COMM_OPS.get(getattr(func, "_opname", ""))
+        if op is not None:
+            self.comm_counts[func._overloadpacket] += 1
+            group = next(a for a in reversed([*args, *(kwargs or {}).values()])
+                         if isinstance(a, str))
+            self.records.append((op, out.numel() * out.element_size(), group))
+        return out
+
+
+def collectives_from_comm(comm_mode: CommRecorder,
+                          mesh) -> CollectiveSummary:
+    """``CollectiveSummary`` of the collectives a ``CommRecorder`` saw on
+    one rank of ``mesh`` (every rank runs the same program), priced by
+    ``parse_collectives``' ring model: (g-1)/g of the payload for
+    all-gather, reduce-scatter and all-to-all, 2(g-1)/g for all-reduce,
+    one hop for a permute; g is the size of the collective's group (a
+    mesh dim's, or the product of the dims DTensor flattened into one
+    group), and wire bytes aggregate over the mesh's ranks."""
+    n_chips = mesh.size()
+    counts: dict = {}
+    wire: dict = {}
+    for op, payload, group in comm_mode.records:
+        g = max(_resolve_process_group(group).size(), 1)
+        if op == "all-reduce":
+            per_chip = 2 * (g - 1) / g * payload
+        elif op == "collective-permute":
+            per_chip = payload
+        else:
+            per_chip = (g - 1) / g * payload
+        counts[op] = counts.get(op, 0) + 1
+        wire[op] = wire.get(op, 0.0) + per_chip * n_chips
+    return CollectiveSummary(counts, wire, sum(wire.values()))
 
 
 # ------------------------------------------------------------ analytic cost

@@ -13,20 +13,21 @@ Port of ``src/repro/scenarios/__init__.py``. Three pieces
 * ``fleet`` — the journaled recording campaign that walks the matrix and
   registers results into the hub.
 
-The reference's ``facts_from_compiled`` (jax's compile-only cost
-analysis) is not exported: it waits for the port's dry-run tooling.
+``facts_from_compiled`` reads the port's dry run (``launch.dryrun``)
+where the reference reads jax's compile-only cost analysis.
 """
 from .fleet import FleetOutcome, run_fleet, runnable
 from .matrix import (CoverageReport, CoverageRow, Scenario, ScenarioMatrix,
                      gate_recorded, kernel_shapes, live_device_label)
 from .surrogate import (MODEL_NAME, MODELED_CONFIDENCE, ModeledBest,
-                        SurrogatePrice, SurrogateRunner, best_modeled, price,
-                        price_from_facts)
+                        SurrogatePrice, SurrogateRunner, best_modeled,
+                        facts_from_compiled, price, price_from_facts)
 
 __all__ = [
     "CoverageReport", "CoverageRow", "FleetOutcome", "MODELED_CONFIDENCE",
     "MODEL_NAME", "ModeledBest", "Scenario", "ScenarioMatrix",
-    "SurrogatePrice", "SurrogateRunner", "best_modeled", "gate_recorded",
+    "SurrogatePrice", "SurrogateRunner", "best_modeled",
+    "facts_from_compiled", "gate_recorded",
     "kernel_shapes", "live_device_label", "price", "price_from_facts",
     "run_fleet", "runnable",
 ]

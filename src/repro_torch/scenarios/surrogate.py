@@ -15,16 +15,18 @@ memory_s)`` plus a per-grid-cell launch cost, one observation, no noise.
 Pricing the same config twice returns a bit-identical ``CachedResult`` —
 the property the ``modeled`` lookup tier and the conformance tests pin.
 
-``price_from_facts`` turns measured FLOP/byte counts (XLA's compile-only
-cost analysis in the reference) into the same roofline bound — the
-calibration path for non-registry workloads.
+For workloads that were actually traced, ``facts_from_compiled`` reads
+the dry run's counts (via ``launch.dryrun.cost_analysis_dict``) and
+``price_from_facts`` turns those FLOP/byte counts into the same roofline
+bound — the calibration path for non-registry workloads.
 
 Port of ``src/repro/scenarios/surrogate.py``, a copy: ``price``,
 ``price_from_facts``, ``SurrogateRunner`` and ``best_modeled`` give the
 reference's results bit for bit on the same inputs, and the roofline
 constants stay the reference's TPU v5e frame (``roofline/analysis.py``).
-Change: no ``facts_from_compiled``, which reads a jax ``Compiled`` through
-``launch/dryrun.py``; it waits for the port's dry-run tooling.
+Change: ``facts_from_compiled`` takes the port's dry-run record (a
+``launch.dryrun.Traced``: one rank's counted FLOPs and bytes) where the
+reference takes a jax ``Compiled``.
 """
 from __future__ import annotations
 
@@ -107,6 +109,14 @@ def price_from_facts(facts: Mapping, device: DeviceModel,
         bytes_per_chip=hbm * (HBM_BW / device.hbm_bw),
         collective_wire_bytes=0.0, n_chips=1, mflops=flops)
     return SurrogatePrice("ok", max(rf.compute_s, rf.memory_s), rf, eff=eff)
+
+
+def facts_from_compiled(traced) -> dict:
+    """Dry-run facts of a traced cell (``launch.dryrun.lower_cell``'s
+    ``Traced``): ``{"flops": ..., "bytes accessed": ...}`` per rank,
+    through ``launch.dryrun.cost_analysis_dict``."""
+    from ..launch.dryrun import cost_analysis_dict
+    return dict(cost_analysis_dict(traced))
 
 
 class SurrogateRunner(Runner):

@@ -13,7 +13,9 @@ gradients in float32 from zero, then scales them by 1/n, as the
 reference's ``lax.scan`` does. The remat policy goes to ``forward``,
 which applies it per layer body; the flash-attention and SSD call sites
 differentiate through their own backward (``models/attention.py``,
-``models/mamba2.py``).
+``models/mamba2.py``). With DTensor parameters and batch (the dry run,
+phase 12) the gold logit is the reference's iota-mask reduction, and a
+microbatch is the same slice of each rank's rows (``_split``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
@@ -69,7 +72,15 @@ def _ce_chunk(cfg: ArchConfig, params: Model, xb, tb, z_loss: float):
     logits = _unembed(cfg, params, xb)            # (B, chunk, V) fp32
     lse = torch.logsumexp(logits, dim=-1)
     valid = (tb >= 0).float()
-    gold = torch.gather(logits, -1, tb.clamp_min(0)[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # the reference's iota-mask reduction: a gather across vocab-sharded
+        # logits has no sharding DTensor can keep; the masked sum stays
+        # sharded (the same value: one term is nonzero)
+        vocab = torch.arange(logits.shape[-1], device=tb.device)
+        gold = torch.where(vocab == tb.clamp_min(0)[..., None], logits,
+                           0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, tb.clamp_min(0)[..., None])[..., 0]
     loss_sum = torch.sum((lse - gold) * valid)
     if z_loss:
         loss_sum = loss_sum + z_loss * torch.sum(torch.square(lse) * valid)
@@ -112,6 +123,24 @@ def make_loss_fn(cfg: ArchConfig, tc: TrainConfig) -> Callable:
     return loss_fn
 
 
+def _split(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n``: rows i·B/n .. (i+1)·B/n, or for a
+    DTensor batch the same slice of each rank's own rows (no collective;
+    the microbatches hold other rows than the plain split, their sum is
+    the same)."""
+    if isinstance(v, DTensor):
+        local = v.to_local()
+        if local.shape[0] % n:
+            raise ValueError(f"a rank's {local.shape[0]} rows do not split "
+                             f"into {n} microbatches")
+        size = local.shape[0] // n
+        return DTensor.from_local(local[i * size:(i + 1) * size],
+                                  v.device_mesh, v.placements,
+                                  run_check=False)
+    size = v.shape[0] // n
+    return v[i * size:(i + 1) * size]
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
                     tc: TrainConfig = TrainConfig()) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``: the batch (numpy
@@ -135,13 +164,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
             if rows % n:
                 raise ValueError(f"batch {rows} not divisible by {n} "
                                  f"microbatches")
-            size = rows // n
             loss = torch.zeros((), dtype=torch.float32,
                                device=model.embed.device)
             grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in params.values()]
             for i in range(n):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                mb = {k: _split(v, i, n) for k, v in batch.items()}
                 mb_loss, mb_grads = value_and_grad(model, params, mb)
                 for acc, g in zip(grads, mb_grads):
                     acc.add_(g)

@@ -32,6 +32,13 @@ first step moves each by about lr).
 The hub on the card: the framework kernels' smoke recordings, a live
 fleet and a live warm start launch their kernels exactly as often as
 their recordings ran them (one warm-up and one a repeat an ok config).
+The mesh tooling: the kernels' operators (``torch.ops.repro_torch.*``)
+one launch a call and bit-identical to the direct launch, within the
+kernels' tolerances of the plain versions; zamba2-1.2b at full width,
+cut to 7 layers, on a one-rank ``nccl`` mesh with DTensor parameters
+bit-identical to the plain calls (logits, loss, every gradient; no
+tolerance: one rank runs the same local ops); a fake-world dry-run
+cell at its published size on the card, launching nothing.
 """
 import dataclasses
 import random
@@ -1318,3 +1325,126 @@ def test_live_fleet_and_warm_start_on_card(card, tmp_path):
     r = svc.lookup("dedispersion", problem, label)
     assert r.status == "exact"
     assert dd.launches - before == _calls(storage.load_cache(root, r.source))
+
+
+# ------------------------------------------------------------ mesh tooling
+# the kernels as operators, a one-rank DTensor mesh against the plain
+# calls (bit-identical), and a fake-world dry-run cell on the card
+def test_kernel_operators_launch_and_match_plain(card):
+    """``torch.ops.repro_torch.*``: each call one launch, the outputs the
+    direct launch's bit for bit and within the kernels' tolerances of the
+    plain versions; the backward operators the functions they wrap."""
+    from repro_torch.models import attention, mamba2
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v = (torch.randn((n, 256, 64), generator=gen, device=card)
+               for n in (4, 2, 2))
+    before = fa.launches
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, 64, 64, True,
+                                                     -1, True, 256)
+    assert fa.launches == before + 1
+    direct, lse2 = fa.launch(q, k, v, block_q=64, block_kv=64,
+                             return_lse=True)
+    assert torch.equal(out, direct) and torch.equal(lse, lse2)
+    torch.testing.assert_close(out, fa.attention_plain(q, k, v),
+                               rtol=RTOL[torch.float32],
+                               atol=RTOL[torch.float32])
+    args = ssd.live_inputs({"bh": 4, "seq": 256, "p": 32, "n": 32},
+                           device=card)
+    before = ssd.launches
+    y, h, states = torch.ops.repro_torch.ssd_scan(*args, 64, True, True)
+    assert ssd.launches == before + 1
+    y2, h2, states2 = ssd.launch(*args, chunk=64, final_state=True,
+                                 chunk_states=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2) \
+        and torch.equal(states, states2)
+    yp = ssd.ssd_plain(*args, chunk=64)
+    assert (y - yp).abs().max() < 3e-3 * max(1.0, yp.abs().max().item())
+    dout = torch.randn(q.shape, generator=gen, device=card)
+    got = torch.ops.repro_torch.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                    True, -1, 256)
+    want = attention._flash_bwd(q, k, v, out, lse, dout, causal=True,
+                                window=None, kv_len=256)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    dy = torch.randn(y.shape, generator=gen, device=card)
+    got = torch.ops.repro_torch.ssd_scan_bwd(*args, states, dy, None, 64)
+    want = mamba2._ssd_bwd(*args, states, dy, None, 64)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_one_rank_mesh_is_bit_identical_on_card(card, tmp_path):
+    """Phase 12 (a) at a smaller depth: zamba2-1.2b at full width cut to
+    7 layers (one group of 6 Mamba layers, the shared block, a tail of
+    one) on a real one-rank ``nccl`` group: a prefill, two decode steps,
+    the loss and every gradient with DTensor parameters equal the plain
+    calls' bit for bit, with the same kernel launches."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_config
+    from repro_torch.distribution import annotate as an
+    from repro_torch.distribution import sharding as sh
+    from repro_torch.launch.mesh import destroy_world, make_host_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.training.train_step import TrainConfig, make_loss_fn
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=7)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        model = tf.init_params(cfg, torch.Generator(device=card).manual_seed(
+            0), device=card)
+        gen = torch.Generator(device=card).manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (2, 258), generator=gen,
+                               device=card)
+        loss_fn = make_loss_fn(cfg, TrainConfig(remat="full"))
+
+        def run(place, whole):
+            before = (fa.launches, ssd.launches)
+            with torch.no_grad():
+                last, cache, n = tf.prefill(
+                    cfg, model, {"tokens": place(tokens[:, :256])}, 512)
+                out = [whole(last)]
+                for i in range(2):
+                    step, cache = tf.decode_step(
+                        cfg, model, cache, place(tokens[:, 256 + i:257 + i]),
+                        n + i)
+                    out.append(whole(step))
+            loss = loss_fn(model, {"tokens": place(tokens[:, :129])})
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            return (out, whole(loss), [whole(g) for g in grads],
+                    (fa.launches - before[0], ssd.launches - before[1]))
+
+        plain = run(lambda t: t, lambda t: t)
+        sh.distribute_model(model, mesh)
+
+        def place(t):
+            return sh.distribute_tree({"t": t}, mesh, sh.batch_shardings(
+                mesh, {"t": t}))["t"]
+
+        with an.annotation_mesh(mesh), implicit_replication():
+            sharded = run(place, lambda t: t.full_tensor())
+        assert all(torch.equal(a, b) for a, b in zip(plain[0], sharded[0]))
+        assert torch.equal(plain[1], sharded[1])
+        assert all(torch.equal(a, b) for a, b in zip(plain[2], sharded[2]))
+        assert plain[3] == sharded[3] and all(plain[3])
+    finally:
+        destroy_world()
+
+
+def test_fake_world_dry_run_cell_on_card(card):
+    """olmo-1b train_4k at its published size on the 256-rank mesh of a
+    fake world, fake tensors on the card: the record is ok and launches
+    nothing."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import destroy_world, init_fake_world
+    init_fake_world(512)
+    try:
+        before = (fa.launches, ssd.launches)
+        rec = dryrun.run_cell("olmo-1b", "train_4k", "single", device=card)
+        assert rec["status"] == "ok", rec.get("traceback")
+        assert (fa.launches, ssd.launches) == before
+        assert rec["cost"]["hlo_flops_per_chip"] > 0
+        assert rec["memory"]["peak_bytes_per_chip"] > \
+            rec["memory"]["argument_bytes_per_chip"] > 0
+        assert sum(rec["collectives"]["counts"].values()) > 0
+    finally:
+        destroy_world()
