@@ -261,10 +261,20 @@ Phases (any failure ends the script with a non-zero exit):
      ``single`` (256 ranks) and ``multi`` (512) meshes, in
      ``DRYRUN_WORKERS`` spawned processes each with its own fake world:
      every cell ``ok``, its dominant term, useful ratio, peak GiB a rank,
-     collectives by type and trace seconds; (c) ``hillclimb`` of
+     its counted FLOPs a rank against ``analytic_cost``'s, collectives
+     by type and trace seconds; and ``DRYRUN_DP_POINT``, olmo-1b
+     train_4k under ``dp`` at microbatches 2 on the multi mesh (a rank
+     holds one row, so the microbatches take the global rows), which
+     must trace ``ok`` at a peak within the card's memory; (c) ``hillclimb`` of
      olmo-1b train_4k on the single mesh, 6 evaluations, the card's
      memory as the budget, in the same pool: its improvement over the
-     baseline.
+     baseline;
+ 13. the port's examples ``EXAMPLES`` (``examples/torch_*.py``) as
+     subprocesses on the card, each within ``EXAMPLE_LIMIT_S``; a
+     non-zero exit fails the run.
+
+Phases 7 and 9 print the path each serving call took (``plain``
+parameters or ``DTensor`` ones).
 
 Before phase 5 every recording is checked to let a tuning run end
 (``ends_check``); phases 5, 6, 7, 8, 9, 10 and 11 each fail past a
@@ -455,13 +465,23 @@ HUB_SCORE_REPEATS = 25       # (e): the paper's repeats
 # hillclimb
 MESH_DECODE_STEPS = 3
 DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("grok-1-314b", "train_4k"),
-                ("whisper-small", "train_4k"), ("zamba2-1.2b", "prefill_32k"),
+                ("whisper-small", "train_4k"), ("gemma3-1b", "train_4k"),
+                ("zamba2-1.2b", "prefill_32k"),
                 ("qwen2-vl-2b", "prefill_32k"),
+                ("phi3-mini-3.8b", "prefill_32k"),
                 ("qwen3-moe-235b-a22b", "decode_32k"),
                 ("mamba2-130m", "decode_32k"), ("gemma3-1b", "long_500k"))
+# a dp point whose ranks hold one train row each: its microbatches take
+# the global rows (training/train_step.py ``_split``), each rank its own
+# rows of them (``batch_rows``); its peak must fit the card's memory
+DRYRUN_DP_POINT = ("olmo-1b", "train_4k", "multi",
+                   {"microbatches": 2, "layout": "dp"})
 DRYRUN_WORKERS = 4           # processes tracing cells at once (8 cores)
 HILLCLIMB = ("olmo-1b", "train_4k", "single", 6)
 MESH_LIMIT_S = 600           # phase 12 fails past this wall-clock limit
+# phase 13: the port's examples a user runs first, on the card
+EXAMPLES = ("torch_autotune_kernel.py", "torch_serve_batch.py")
+EXAMPLE_LIMIT_S = 300        # each example fails past this wall clock
 
 
 def fail(msg: str) -> None:
@@ -1933,6 +1953,15 @@ def meta_campaign(caches, device: str, repeats: int, out_dir: pathlib.Path,
 
 
 # ----------------------------------------------------------------- phase 7
+def call_path(model) -> str:
+    """The path the model code takes for ``model``'s calls: ``DTensor``
+    when its parameters are DTensors (the sharded call sites), ``plain``
+    otherwise."""
+    from torch.distributed.tensor import DTensor
+    return ("DTensor" if any(isinstance(p, DTensor)
+                             for p in model.parameters()) else "plain")
+
+
 class Capture:
     """Keep a copy of the inputs of call number ``at`` (from 0: the first)
     of a kernel wrapper (``module.attr``) while the ``with`` block runs;
@@ -2175,7 +2204,8 @@ def serve(device: str, card: str, limit_s: int) -> dict:
         if [len(o) for o in outs] != [SERVE_NEW] * SERVE_BATCH or not all(
                 0 <= x < cfg.vocab for o in outs for x in o):
             fail("serve: the engine returned malformed tokens")
-        print(f"  (e) [{card}] prefill {t['prefill_ms']:.3f} ms; decode "
+        print(f"  (e) [{card}] {call_path(model)} path: prefill "
+              f"{t['prefill_ms']:.3f} ms; decode "
               f"{t['decode_ms'] / t['steps']:.4f} ms a token "
               f"({t['steps']} steps of batch {SERVE_BATCH}); "
               f"{new / device_s:.1f} tokens/s generated over prefill + "
@@ -2599,7 +2629,8 @@ def serve_family(cfg, model, device: str, card: str, tokens, new: int,
         fail(f"{cfg.name}: the engine returned malformed tokens")
     t = engine.timings
     device_s = (t["prefill_ms"] + t["decode_ms"]) / 1e3
-    print(f"  [{card}] {cfg.name}: prefill {t['prefill_ms']:.3f} ms; decode "
+    print(f"  [{card}] {cfg.name}, {call_path(model)} path: prefill "
+          f"{t['prefill_ms']:.3f} ms; decode "
           f"{t['decode_ms'] / t['steps']:.4f} ms a token ({t['steps']} "
           f"steps of batch {b}); {b * new / device_s:.1f} tokens/s "
           f"generated over prefill + decode ({b * plen / t['prefill_ms'] * 1e3:.0f}"
@@ -3685,6 +3716,7 @@ def mesh_phase(device: str, card: str, limit_s: int) -> dict:
     from repro_torch.launch.mesh import init_fake_world
     time_limit(12, limit_s)
     t_phase = time.perf_counter()
+    hbm = torch.cuda.get_device_properties(0).total_memory
     pool = cf.ProcessPoolExecutor(
         DRYRUN_WORKERS, mp_context=mproc.get_context("spawn"),
         initializer=init_fake_world, initargs=(512,))
@@ -3695,33 +3727,46 @@ def mesh_phase(device: str, card: str, limit_s: int) -> dict:
         climb = pool.submit(
             perf.hillclimb, arch, shape, mesh_kind, max_evals=evals,
             out_dir=str(ROOT / "build" / "chip_smoke" / "perf"),
-            hbm_budget=torch.cuda.get_device_properties(0).total_memory,
-            device=device)
+            hbm_budget=hbm, device=device)
         futures = [pool.submit(dryrun.run_cell, *c, device=device)
                    for c in cells]
+        *dp_cell, dp_kw = DRYRUN_DP_POINT
+        cells.append((*dp_cell, dp_kw))
+        futures.append(pool.submit(dryrun.run_cell, *dp_cell, device=device,
+                                   **dp_kw))
         launches = one_rank_mesh(device)
         print(f"  (b) fake-world dry run, {len(cells)} cells in "
-              f"{DRYRUN_WORKERS} processes ({card}):")
+              f"{DRYRUN_WORKERS} processes ({card}); flops a rank against "
+              f"analytic_cost's:")
         bad = []
-        for (a, s, m), f in zip(cells, futures):
+        for (a, s, m, *kw), f in zip(cells, futures):
             rec = f.result()
+            what = f"{a:20s} {s:12s} {m:6s}" + (f" {kw[0]}" if kw else "")
             if rec["status"] != "ok":
-                bad.append((a, s, m))
-                print(f"      {a:20s} {s:12s} {m:6s} {rec['status'].upper()}"
+                bad.append(what)
+                print(f"      {what} {rec['status'].upper()}"
                       f" {rec.get('error', rec.get('reason'))}\n"
                       f"{rec.get('traceback', '')}")
                 continue
-            r, mem = rec["roofline"], rec["memory"]
+            r, mem, cost = rec["roofline"], rec["memory"], rec["cost"]
             coll = rec["collectives"]["counts"]
-            print(f"      {a:20s} {s:12s} {m:6s} ok  dominant "
+            ratio = (cost["hlo_flops_per_chip"]
+                     / cost["analytic_flops_per_chip"])
+            print(f"      {what} ok  dominant "
                   f"{r['dominant']:10s} useful {r['useful_ratio']:.4f} "
                   f"peak {mem['peak_bytes_per_chip'] / 2**30:.2f} GiB a rank"
-                  f", flops {rec['cost']['hlo_flops_per_chip']:.4g} a rank"
-                  f" (analytic {rec['cost']['analytic_flops_per_chip']:.4g})"
-                  f", collectives {coll}, {rec['local_ops']} local ops, "
-                  f"traced in {rec['compile_s']} s")
+                  f", flops {cost['hlo_flops_per_chip']:.4g} a rank"
+                  f" (analytic {cost['analytic_flops_per_chip']:.4g}, "
+                  f"{ratio:.3f}x), collectives {coll}, {rec['local_ops']} "
+                  f"local ops, traced in {rec['compile_s']} s")
         if bad:
             fail(f"phase 12 (b): dry-run cells not ok: {bad}")
+        # the dp point is the last cell
+        peak = futures[-1].result()["memory"]["peak_bytes_per_chip"]
+        if peak > hbm:
+            fail(f"phase 12 (b): the dp point's peak {peak / 2**30:.2f} "
+                 f"GiB a rank is above the card's {hbm / 2**30:.2f} GiB, "
+                 f"which the hillclimb's budget rejects")
         res = climb.result()
         print(f"  (c) hillclimb {arch} {shape} {mesh_kind}, {evals} "
               f"evaluations: baseline {res['baseline']}, best "
@@ -3737,6 +3782,30 @@ def mesh_phase(device: str, card: str, limit_s: int) -> dict:
         for proc in list(getattr(pool, "_processes", {}).values()):
             proc.terminate()
         pool.shutdown(wait=True, cancel_futures=True)
+
+
+# ---------------------------------------------------------------- phase 13
+def examples_phase(card: str) -> None:
+    """Phase 13: each of ``EXAMPLES`` run on the card as a subprocess
+    (its default device), each under ``EXAMPLE_LIMIT_S``; a non-zero exit
+    fails the run. Prints each example's wall and its last lines."""
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        try:
+            got = subprocess.run([sys.executable,
+                                  str(ROOT / "examples" / name)],
+                                 capture_output=True, text=True, cwd=ROOT,
+                                 timeout=EXAMPLE_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 13: {name} ran over {EXAMPLE_LIMIT_S} s")
+        tail = got.stdout.strip().splitlines()[-4:]
+        print(f"  [{card}] {name}: exit {got.returncode} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for line in tail:
+            print(f"    {line[:200]}")
+        if got.returncode:
+            fail(f"phase 13: {name} exited {got.returncode}: "
+                 f"{got.stderr[-2000:]}")
 
 
 def main() -> int:
@@ -3895,6 +3964,11 @@ def main() -> int:
     for name, n in phase12.items():
         launches[name] += n
     print(f"  [phase 12: {time.perf_counter() - t0:.1f} s]")
+    print("[13] the port's examples on the card: "
+          f"{', '.join(EXAMPLES)}")
+    t0 = time.perf_counter()
+    examples_phase(smi.stdout.strip())
+    print(f"  [phase 13: {time.perf_counter() - t0:.1f} s]")
     print(f"  launches on the main paths (phases 4-6, 7, 8, 9, 10, 11 and "
           f"12): {launches}")
     for k in kernels:

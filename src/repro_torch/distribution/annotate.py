@@ -27,17 +27,21 @@ a DTensor to the resolved placements (free when they already hold, and
 shown in ``CommDebugMode`` when they do not), where the reference's
 constraint lets GSPMD choose how to get there; as the constraint does,
 it pins the gradient to the same placements in the backward (``_Pin``).
-A plain tensor passes through unchanged, mesh or not: only DTensors
-carry a layout.
+``residual`` pins a sublayer's output for its residual add, with
+distinct placements forward and backward under 2d_seq. A plain tensor
+passes through unchanged, mesh or not: only DTensors carry a layout.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
+import math
 import threading
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                      distribute_tensor)
+from torch.distributed.tensor.experimental import local_map
 
 from .sharding import axes_of, placements
 
@@ -50,15 +54,40 @@ def _current():
 
 
 @contextlib.contextmanager
-def annotation_mesh(mesh, layout: str = "2d"):
-    if layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {LAYOUTS}, not {layout!r}")
-    prev = _current()
-    _STATE.mesh, _STATE.layout = mesh, layout
+def _installed(mesh, layout: str, rows):
+    prev = (*_current(), getattr(_STATE, "rows", None))
+    _STATE.mesh, _STATE.layout, _STATE.rows = mesh, layout, rows
     try:
         yield
     finally:
-        _STATE.mesh, _STATE.layout = prev
+        _STATE.mesh, _STATE.layout, _STATE.rows = prev
+
+
+def annotation_mesh(mesh, layout: str = "2d"):
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, not {layout!r}")
+    return _installed(mesh, layout, None)
+
+
+def batch_rows(n: int):
+    """A context in which the activations' batch axis ("dp") is laid out
+    for a batch of ``n`` rows: where the installed layout's batch axes do
+    not divide ``n``, on the widest of their sub-tuples that does (in
+    mesh order; none if none does), so that each rank keeps its own rows
+    where the reference's GSPMD would, rather than every rank computing
+    them all. The layout's own axes where they divide; nothing without a
+    mesh. The train step enters it for each (micro)batch."""
+    mesh, layout = _current()
+    if mesh is None:
+        return _installed(None, layout, None)
+    ax = axes_of(mesh)
+    dp = _resolve(ax.names, layout, "dp")
+    subs = [c for k in range(len(dp), 0, -1)
+            for c in itertools.combinations(dp, k)]
+    fits = [c for c in subs if n % math.prod(ax.shape[a] for a in c) == 0]
+    rows = max(fits, key=lambda c: math.prod(ax.shape[a] for a in c),
+               default=())
+    return _installed(mesh, layout, rows)
 
 
 def _resolve(names, layout: str, logical: str | None):
@@ -81,12 +110,16 @@ def _resolve(names, layout: str, logical: str | None):
 
 def resolve_spec(mesh, layout: str, shape, *logical_spec) -> tuple:
     """The spec ``annotate`` pins a tensor of ``shape`` to: each logical
-    axis resolved, and dropped where its size does not divide the dim."""
+    axis resolved ("dp" as ``batch_rows`` lays it out, where entered),
+    and dropped where its size does not divide the dim."""
     ax = axes_of(mesh)
     names, sizes = ax.names, ax.shape
+    rows = getattr(_STATE, "rows", None)
     spec = []
     for dim, logical in zip(shape, logical_spec):
         axes = _resolve(names, layout, logical)
+        if logical == "dp" and rows is not None:
+            axes = rows or None
         if axes is None:
             spec.append(None)
             continue
@@ -102,11 +135,12 @@ class _Pin(torch.autograd.Function):
     """``with_sharding_constraint``'s semantics: the value is laid out as
     ``want``, and so is its gradient (DTensor's own ``redistribute``
     sends the gradient back in the input's layout, which lets a
-    replicated gradient run the backward's products unsharded)."""
+    replicated gradient run the backward's products unsharded), or as
+    ``grad_want`` where given."""
 
     @staticmethod
-    def forward(ctx, x, want):
-        ctx.want = want
+    def forward(ctx, x, want, grad_want=None):
+        ctx.want = want if grad_want is None else grad_want
         if tuple(x.placements) == want:
             return x.view_as(x)
         return x.redistribute(x.device_mesh, want)
@@ -115,7 +149,7 @@ class _Pin(torch.autograd.Function):
     def backward(ctx, grad):
         if isinstance(grad, DTensor) and tuple(grad.placements) != ctx.want:
             grad = grad.redistribute(grad.device_mesh, ctx.want)
-        return grad, None
+        return grad, None, None
 
 
 def annotate(x, *logical_spec):
@@ -128,16 +162,160 @@ def annotate(x, *logical_spec):
     return _Pin.apply(x, placements(mesh, spec))
 
 
+def residual(h):
+    """A sublayer's output (B, S, D) laid out as the residual stream it is
+    added to, ("dp", "sp", None): under sequence parallelism (2d_seq) a
+    partial sum over the model axis is reduce-scattered into the
+    stream's sequence shard, as GSPMD does, where pinning it whole would
+    all-reduce it and the add then slice it. Its gradient is pinned whole
+    in its sequence, ("dp", None, None): the backward gathers it before
+    the sublayer's products, which DTensor cannot run on a sequence
+    shard folded into their rows. Under the other layouts both are
+    ("dp", None, None), as ``annotate`` pins; ``h`` itself without a
+    mesh or a DTensor."""
+    mesh = getattr(_STATE, "mesh", None)
+    if mesh is None or not isinstance(h, DTensor):
+        return h
+    layout = _STATE.layout
+    want = placements(mesh, resolve_spec(mesh, layout, h.shape, "dp", "sp",
+                                         None))
+    whole = placements(mesh, resolve_spec(mesh, layout, h.shape, "dp", None,
+                                          None))
+    return _Pin.apply(h, want, whole)
+
+
+def gathered(w, x=None):
+    """A parameter as a product with ``x`` uses it. A DTensor is
+    gathered on the axes that shard the activations' batch under the
+    installed layout ("pod" and "data"; all three under ``dp``; the FSDP
+    axes without a mesh) where they shard x's rows too, as the
+    reference's GSPMD all-gathers an FSDP shard where the activations
+    keep their batch shard, decode steps included: DTensor's own choice
+    may instead contract over that shard and replicate the batch on its
+    axis, so that every rank computes and holds every row of the product
+    (and its einsum over the MoE's expert weights fails in the backward).
+    Outside a backward (serving), on an axis that does not split x (a
+    batch of one) the shard stays and the ranks split the contraction
+    over it, as XLA does; a backward through such a product meets a
+    strided shard DTensor cannot propagate, so with gradients the shard
+    is always gathered. The gradient is laid out as the parameter is.
+    Mesh dims of one rank are left alone; ``w`` itself when it is not a
+    DTensor or nothing moves."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    names = mesh.mesh_dim_names
+    installed, layout = _current()
+    dp = _resolve(names, layout if installed is not None else "2d", "dp")
+    split = (range(mesh.ndim)
+             if not isinstance(x, DTensor)
+             or (torch.is_grad_enabled() and w.requires_grad) else
+             [i for i, p in enumerate(x.placements) if isinstance(p, Shard)])
+    have = tuple(w.placements)
+    want = tuple(Replicate() if names[i] in dp and mesh.size(i) > 1
+                 and i in split else p for i, p in enumerate(have))
+    if want == have:
+        return w
+    return _Pin.apply(w, want, have)
+
+
+def matmul_tp(x, w):
+    """``x @ w`` in x's dtype for x (..., D) and a gathered weight w (D,
+    V), cast where it is used. Where the tensor-parallel axis shards
+    neither (a width it does not divide, as the unembedding of a
+    50,280-token vocab on 16 ranks), the ranks of that axis split the
+    contraction D, each casting and multiplying its slice
+    (``summed_map``), and the partial sums are added where the product
+    is next used, as XLA splits such a product; DTensor would run it
+    whole on every rank of the axis. Otherwise ``x @ w`` (w cast to x's
+    dtype where it differs)."""
+    mesh, layout = _current()
+    if mesh is None or not (isinstance(x, DTensor)
+                            and isinstance(w, DTensor)):
+        return x @ _cast(w, x.dtype)
+    names = w.device_mesh.mesh_dim_names
+    tp = _resolve(names, layout, "tp")
+    if tp is None:
+        return x @ _cast(w, x.dtype)
+    i = names.index(tp)
+    n = w.device_mesh.size(i)
+    if (n == 1 or w.shape[0] % n or x.placements[i] != Replicate()
+            or any(p != Replicate() for p in w.placements)):
+        return x @ _cast(w, x.dtype)
+    xp = tuple(Shard(x.ndim - 1) if j == i else p
+               for j, p in enumerate(x.placements))
+    wp = tuple(Shard(0) if j == i else p for j, p in enumerate(w.placements))
+    out = tuple(Partial() if j == i else p
+                for j, p in enumerate(x.placements))
+    w = w.redistribute(w.device_mesh, wp).to(x.dtype)
+    return summed_map(torch.matmul, out_placements=list(out),
+                      in_placements=(list(xp), list(wp)))(
+        x.redistribute(x.device_mesh, xp), w)
+
+
+def _cast(w, dtype):
+    """``w`` in ``dtype``: itself where it is already, with no dispatch."""
+    return w if w.dtype == dtype else w.to(dtype)
+
+
+class _PartialGrad(torch.autograd.Function):
+    """``x`` itself, whose gradient is declared a partial sum on the mesh
+    dims ``dims`` where it arrives replicated."""
+
+    @staticmethod
+    def forward(ctx, x, dims):
+        ctx.dims = dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not isinstance(grad, DTensor):
+            return grad, None
+        want = tuple(Partial() if i in ctx.dims and p == Replicate() else p
+                     for i, p in enumerate(grad.placements))
+        return DTensor.from_local(grad.to_local(), grad.device_mesh, want,
+                                  run_check=False, shape=grad.shape,
+                                  stride=grad.stride()), None
+
+
+def summed_map(fn, out_placements, in_placements):
+    """``local_map(fn, ...)`` whose backward adds the ranks' gradients of a
+    replicated input: an input replicated on a mesh dim that splits an
+    output (a weight beside batch-sharded rows, kv heads beside a rank's
+    q heads) gets on each rank the gradient of that rank's share alone,
+    which ``local_map`` would declare the replicated whole; it is
+    declared a partial sum there instead, so DTensor adds the shares."""
+    outs = (out_placements if isinstance(out_placements, tuple)
+            else (out_placements,))
+    split = {d for pl in outs for d, p in enumerate(pl)
+             if isinstance(p, Shard)}
+    mapped = local_map(fn, out_placements=out_placements,
+                       in_placements=in_placements)
+
+    def call(*args):
+        summed = []
+        for a, pl in zip(args, in_placements):
+            if isinstance(a, DTensor) and a.requires_grad:
+                dims = tuple(d for d in sorted(split) if pl[d] == Replicate()
+                             and a.device_mesh.size(d) > 1)
+                if dims:
+                    a = _PartialGrad.apply(a, dims)
+            summed.append(a)
+        return mapped(*summed)
+
+    return call
+
+
 def current_layout() -> str:
     return _current()[1]
 
 
 def reinstall():
-    """A context manager that installs the (mesh, layout) installed now,
-    to enter later: a rematerialised layer recomputes inside the
-    backward, which on the card runs on autograd's device thread, where
-    this thread's state is not installed."""
-    return annotation_mesh(*_current())
+    """A context manager that installs the (mesh, layout, batch rows)
+    installed now, to enter later: a rematerialised layer recomputes
+    inside the backward, which on the card runs on autograd's device
+    thread, where this thread's state is not installed."""
+    return _installed(*_current(), getattr(_STATE, "rows", None))
 
 
 def site_placements(x, *logical) -> tuple:

@@ -18,12 +18,16 @@ a fake world of 256 or 512 ranks (``launch.mesh.init_fake_world``), under
     ``annotate`` pins resolved against ``annotation_mesh``; DTensor turns
     each op into its local op and the collectives it needs;
   * ``_Tracer``, the port's dispatch mode under DTensor, which sees the
-    local ops: FLOPs by ``FlopCounterMode``'s formulas
+    local ops: FLOPs by ``FlopCounterMode``'s formulas for the products
     (``torch.utils.flop_counter.flop_registry``; ``FlopCounterMode``
-    itself counts a DTensor op at its global shapes), bytes read and
+    itself counts a DTensor op at its global shapes) and, for every other
+    op, as XLA's cost analysis counts it (``elementwise_flops``), so the
+    count is the counterpart of ``cost_analysis()["flops"]``, bytes read and
     written (each non-view op's input and output bytes, the counterpart
     of XLA's ``bytes accessed``), and memory (live storages: arguments,
-    outputs, temporaries, aliases and the peak);
+    outputs, temporaries, aliases and the peak; a tensor on the ``meta``
+    device, such as the global cache shapes prefill lays its shards out
+    by, holds none);
   * ``roofline.analysis.CommRecorder`` (``CommDebugMode``), which sees the
     collectives; ``collectives_from_comm`` prices them.
 
@@ -128,6 +132,36 @@ class Traced:
         return collectives_from_comm(self.comm, self.mesh)
 
 
+# XLA's cost analysis counts these apart, as transcendentals, not flops
+_TRANSCENDENTAL = frozenset(
+    "exp exp2 expm1 log log1p log2 log10 tanh sigmoid sin cos tan rsqrt "
+    "sqrt erf erfc erfinv pow".split())
+
+
+def elementwise_flops(func, ins: list, outs: list) -> int:
+    """The flops XLA's ``HloCostAnalysis`` gives an op that is not a
+    product: one an output element of an arithmetic pointwise op (a
+    comparison, a select and a dtype conversion included; none for a
+    transcendental, a copy or a view), one an input element of a
+    reduction, a scan or a softmax, one a value an accumulating scatter
+    adds."""
+    name = func._overloadpacket.__name__.rstrip("_")
+    tags = func.tags
+    if torch.Tag.pointwise in tags:
+        if name in _TRANSCENDENTAL or name == "clone":
+            return 0
+        return sum(t.numel() for t in outs)
+    if name == "_to_copy":
+        same = outs and ins and outs[0].dtype == ins[0].dtype
+        return 0 if same else outs[0].numel()
+    if torch.Tag.reduction in tags or name in (
+            "cumsum", "_softmax", "_log_softmax"):
+        return ins[0].numel() if ins else 0
+    if name in ("index_put", "scatter_add", "index_add"):
+        return ins[-1].numel() if ins else 0
+    return 0
+
+
 class _Tracer(TorchDispatchMode):
     """Counts the local ops of one rank (DTensor ops are left to DTensor:
     ``NotImplemented`` lets it run them as local ops, which come back
@@ -210,8 +244,11 @@ class _Tracer(TorchDispatchMode):
             formula = flop_registry.get(func._overloadpacket)
             if formula is not None:
                 self.flops += formula(*args, **kwargs, out_val=out)
+            else:
+                self.flops += elementwise_flops(func, ins, outs)
         for t in outs:
-            self._add(t.untyped_storage())
+            if t.device.type != "meta":  # shapes alone, no memory
+                self._add(t.untyped_storage())
         return out
 
 

@@ -47,11 +47,12 @@ them to bf16 first (``:79``), so the two differ at bf16 level.
 the reference computes them outside any kernel.
 
 DTensors (the dry run's fake world, phase 12's one-rank mesh): the
-kernel runs rank by rank on each shard (``local_map``), batch rows on the
-dp axes and q heads on tp, so its (B·H, S, D) reshape, which merges a
-dp-sharded with a tp-sharded dim, happens on local tensors; kv heads
-that do not divide as q's do are held whole and each rank slices the
-ones its q heads read. ``_flash_bwd`` is also the operator
+kernel runs rank by rank on each shard (``summed_map``, a ``local_map``),
+batch rows on the dp axes and q heads on tp, so its (B·H, S, D) reshape,
+which merges a dp-sharded with a tp-sharded dim, happens on local
+tensors; kv heads that do not divide as q's do are held whole and each
+rank slices the ones its q heads read (their gradients, each rank's
+share, are summed over the ranks). ``_flash_bwd`` is also the operator
 ``repro_torch::flash_attention_bwd`` (shapes and a flop count for fake
 tensors). ``decode_attention`` of DTensor caches runs on the caches'
 shards: a head-dim shard sums its partial scores by an all-reduce, a
@@ -65,10 +66,9 @@ import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 from torch.utils.flop_counter import register_flop_formula
 
-from ..distribution.annotate import site_placements
+from ..distribution.annotate import site_placements, summed_map
 from ..kernels import flash_attention as fa
 
 NEG_INF = -1e30
@@ -244,8 +244,8 @@ def _sharded_attention(q, k, v, causal, window):
     q, k, v = (t.redistribute(t.device_mesh, pl)
                for t, pl in ((q, qp), (k, kvp), (v, kvp)))
     # local_map: a list of placements a tensor, a tuple of them a call
-    return local_map(local, out_placements=list(qp),
-                     in_placements=(list(qp), list(kvp), list(kvp)))(q, k, v)
+    return summed_map(local, out_placements=list(qp),
+                      in_placements=(list(qp), list(kvp), list(kvp)))(q, k, v)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -358,8 +358,8 @@ def _sharded_decode(q, k_cache, v_cache, cache_len, window):
 
     q = q.redistribute(mesh, qp)
     cache_len = cache_len.redistribute(mesh, lp)
-    out = local_map(local, out_placements=list(qp),
-                    in_placements=(list(qp), list(cp), list(cp), list(lp)))(
+    out = summed_map(local, out_placements=list(qp),
+                     in_placements=(list(qp), list(cp), list(cp), list(lp)))(
         q, k_cache, v_cache, cache_len)
     # whole heads again: a head-dim shard cannot merge into (H·D)
     return out.redistribute(mesh, tuple(Replicate() if p == Shard(3) else p

@@ -30,12 +30,16 @@ batch and the padding stay outside, so autograd sums their gradients. A
 call whose inputs need no gradient (serving) goes straight to the
 kernel.
 
-DTensors: the scan runs rank by rank on each shard (``local_map``),
-batch rows on the dp axes and heads on tp, so the (B·H, S, ...) layout
-and the per-head copies of B and C hold the local rows and heads only.
-``_ssd_bwd`` is also the operator ``repro_torch::ssd_scan_bwd`` (shapes
-and a flop count for fake tensors). ``in_proj``'s output carries the
-reference's ``annotate`` pin.
+DTensors: the scan and the causal conv run rank by rank on each shard
+(``summed_map``, a ``local_map`` that sums a replicated input's
+gradient over the ranks), batch rows on the dp axes and heads on tp, so
+the (B·H, S, ...) layout and the per-head copies of B and C hold the
+local rows and heads only. ``_ssd_bwd`` is also the operator
+``repro_torch::ssd_scan_bwd`` (shapes and a flop count for fake
+tensors). ``in_proj``'s output carries the reference's ``annotate`` pin,
+in decode too; its product splits its contraction over a model axis its
+width does not divide (``matmul_tp``; mamba2-130m's 3,352 on 16 ranks),
+and decode splits and merges heads only along whole-head shards.
 """
 from __future__ import annotations
 
@@ -43,12 +47,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 from torch.utils.flop_counter import register_flop_formula
 
 from ..configs.base import ArchConfig
-from ..distribution.annotate import (annotate, merge_last, site_placements,
-                                     split_last)
+from ..distribution.annotate import (annotate, gathered, matmul_tp,
+                                     merge_last, site_placements,
+                                     split_last, summed_map)
 from ..kernels import ssd as ssd_kernel
 from .layers import dense_init, param, rmsnorm
 
@@ -82,8 +86,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
         xp = site_placements(x, "dp", None, "tp")
         wp = tuple(Shard(1) if p == Shard(2) else Replicate() for p in xp)
         bp = tuple(Shard(0) if p == Shard(2) else Replicate() for p in xp)
-        return local_map(_causal_conv, out_placements=list(xp),
-                         in_placements=(list(xp), list(wp), list(bp)))(
+        return summed_map(_causal_conv, out_placements=list(xp),
+                          in_placements=(list(xp), list(wp), list(bp)))(
             x.redistribute(mesh, xp), w.redistribute(mesh, wp),
             b.redistribute(mesh, bp))
     k = w.shape[0]
@@ -228,9 +232,9 @@ def _sharded_ssd(x, dt, a, bmat, cmat, chunk: int, final_state: bool):
         y, h = _ssd_chunked(*args, chunk, final_state)
         return (y, h) if final_state else y
 
-    out = local_map(local, out_placements=(list(xp), list(hp))
-                    if final_state else list(xp),
-                    in_placements=tuple(map(list, (xp, dtp, ap, bcp, bcp))))(
+    out = summed_map(local, out_placements=(list(xp), list(hp))
+                     if final_state else list(xp),
+                     in_placements=tuple(map(list, (xp, dtp, ap, bcp, bcp))))(
         x, dt, a, bmat, cmat)
     return out if final_state else (out, None)
 
@@ -301,7 +305,8 @@ class Mamba(nn.Module):
         d_in, nh, hd, n = dims(cfg)
         dt_ = x.dtype
         x = annotate(x, "dp", None, None)  # whole sequences (2d_seq)
-        proj = annotate(x @ self.in_proj.to(dt_), "dp", None, "tp")
+        proj = annotate(matmul_tp(x, gathered(self.in_proj.to(dt_), x)), "dp",
+                        None, "tp")
         z, xbc, dt_raw = _split(cfg, proj)
         xbc_raw = xbc
         xbc = _causal_conv(xbc, self.conv_w, self.conv_b)
@@ -323,7 +328,7 @@ class Mamba(nn.Module):
         y = y + self.D.to(y.dtype)[None, None, :, None] * xh  # skip
         y = merge_last(y)[:, :s]
         y = rmsnorm(y * F.silu(z), self.gate_norm)            # gated norm
-        out = y @ self.out_proj.to(dt_)
+        out = y @ gathered(self.out_proj.to(dt_), y)
         if not return_cache:
             return out, None
         cw = cfg.conv_width
@@ -339,7 +344,8 @@ class Mamba(nn.Module):
         cfg = self.cfg
         d_in, nh, hd, n = dims(cfg)
         dt_ = x.dtype
-        proj = x[:, 0] @ self.in_proj.to(dt_)                   # (B, ...)
+        proj = annotate(matmul_tp(x[:, 0], gathered(self.in_proj.to(dt_), x)),
+                        "dp", "tp")                           # (B, ...)
         z, xbc, dt_raw = _split(cfg, proj)
         # conv update: window = [cache, current]
         win = torch.cat([conv, xbc[:, None, :].to(CONV_DTYPE)], dim=1)
@@ -351,15 +357,15 @@ class Mamba(nn.Module):
         cvec = conv_out[..., d_in + n:].float()
         dt = F.softplus(dt_raw.float() + self.dt_bias)         # (B,H)
         a = -torch.exp(self.A_log)
-        xh = xs.reshape(-1, nh, hd).float()
+        xh = split_last(xs, nh, hd).float()                  # (B,H,P)
         decay = torch.exp(dt * a)                               # (B,H)
         h = (decay[:, :, None, None] * ssm
              + dt[:, :, None, None] * bvec[:, None, :, None]
              * xh[:, :, None, :])
         y = torch.einsum("bhnp,bn->bhp", h, cvec) + self.D[None, :, None] * xh
-        y = y.reshape(-1, d_in).to(dt_)
+        y = merge_last(y).to(dt_)
         y = rmsnorm(y * F.silu(z), self.gate_norm)
-        out = (y @ self.out_proj.to(dt_))[:, None, :]
+        out = (y @ gathered(self.out_proj.to(dt_), y))[:, None, :]
         return out, win[:, 1:], h
 
 

@@ -6,7 +6,8 @@ with the reference's parameter names (``wi``, ``wg``, ``wo``; the MoE's
 ``router`` (d, E), ``wi`` / ``wg`` (E, d, ff), ``wo`` (E, ff, d)), shapes
 and arithmetic: products in the compute dtype, left to ``torch.matmul``
 and ``torch.einsum`` as the reference leaves them to XLA, with the
-reference's ``annotate`` layout pins (no-ops without a mesh).
+reference's ``annotate`` layout pins and each weight's FSDP shard
+gathered where it is used (``gathered``; no-ops without DTensors).
 
 MoE is the reference's per-row capacity dispatch, step for step (no
 kernel of the reference's computes it, so none of the port's does): the
@@ -26,10 +27,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate
-from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
-from ..distribution.annotate import annotate, site_placements
+from ..distribution.annotate import (annotate, gathered, site_placements,
+                                     summed_map)
 from .layers import activation, dense_init, param
 
 
@@ -46,10 +47,11 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
         x = annotate(x, "dp", None, None)  # whole sequences (2d_seq)
-        up = annotate(x @ self.wi.to(dt), "dp", None, "tp")
-        gate = (annotate(x @ self.wg.to(dt), "dp", None, "tp")
+        up = annotate(x @ gathered(self.wi.to(dt), x), "dp", None, "tp")
+        gate = (annotate(x @ gathered(self.wg.to(dt), x), "dp", None, "tp")
                 if self.wg is not None else None)
-        return activation(self.cfg, gate, up) @ self.wo.to(dt)
+        h = activation(self.cfg, gate, up)
+        return h @ gathered(self.wo.to(dt), h)
 
 
 class MoE(nn.Module):
@@ -119,11 +121,13 @@ class MoE(nn.Module):
 
     def _experts(self, buf):
         dt = buf.dtype
-        up = torch.einsum("becd,edf->becf", buf, self.wi.to(dt))
-        gate = (torch.einsum("becd,edf->becf", buf, self.wg.to(dt))
+        up = torch.einsum("becd,edf->becf", buf,
+                          gathered(self.wi.to(dt), buf))
+        gate = (torch.einsum("becd,edf->becf", buf,
+                             gathered(self.wg.to(dt), buf))
                 if self.wg is not None else None)
-        return torch.einsum("becf,efd->becd",
-                            activation(self.cfg, gate, up), self.wo.to(dt))
+        h = activation(self.cfg, gate, up)
+        return torch.einsum("becf,efd->becd", h, gathered(self.wo.to(dt), h))
 
     def _combine(self, out, top_p, top_e, pos_c, keep):
         """Each token's K expert outputs, weighted: (B, S, D)."""
@@ -152,10 +156,10 @@ class MoE(nn.Module):
         whole = (Replicate(),) * mesh.ndim
         x = x.redistribute(mesh, rows)
         router = self.router.redistribute(mesh, whole)
-        buf, *routing = local_map(
+        buf, *routing = summed_map(
             self._dispatch, out_placements=(list(rows),) * 5,
             in_placements=(list(rows), list(whole)))(x, router)
         out = self._experts(annotate(buf, "dp", "tp", None, None))
         out = out.redistribute(mesh, rows)
-        return local_map(self._combine, out_placements=list(rows),
-                         in_placements=(list(rows),) * 5)(out, *routing)
+        return summed_map(self._combine, out_placements=list(rows),
+                          in_placements=(list(rows),) * 5)(out, *routing)

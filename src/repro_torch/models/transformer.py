@@ -55,14 +55,20 @@ What changed:
   * Distribution: the reference's ``annotate`` pins stand where it has
     them (q, k, v after their projections, each block's input, the
     embedded tokens); DTensor parameters (``distribution.sharding``)
-    run the same code. What DTensor needs beyond the pins: sequences
-    gathered before each projection and each sublayer's output pinned
-    whole before its residual add (``_whole``; GSPMD places these
-    itself under 2d_seq), heads split and merged only along whole-head
-    shards (``split_last``, ``merge_last``), positions laid out as the
-    batch rows (``rows_like``), a vocab-parallel embedding lookup
-    (``_embed_sharded``), prefill's cache made as sharded zeros, and
-    decode's cache writes rank by rank (``_write_kv``).
+    run the same code. What DTensor needs beyond the pins: each weight's
+    FSDP shard gathered where a product uses it (``gathered``; the
+    unembedding's contraction split over a model axis its vocab does not
+    divide, ``matmul_tp``), sequences gathered before each projection
+    and each sublayer's output pinned as the residual stream before its
+    add, in decode too (``residual``: under 2d_seq a reduce-scatter into
+    the sequence shard, its gradient gathered whole before the
+    products; GSPMD places these itself), heads split and merged only
+    along whole-head shards (``split_last``, ``merge_last``), positions
+    laid out as the batch rows (``rows_like``), a vocab-parallel
+    embedding lookup (``_embed_sharded``), prefill's cache made as
+    sharded zeros, decode's cache writes rank by rank (``_write_kv``),
+    and every call site run rank by rank summing its replicated inputs'
+    gradients over the ranks (``summed_map``).
 """
 from __future__ import annotations
 
@@ -73,15 +79,15 @@ import itertools
 import torch
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .. import cuda
 from ..configs.base import ArchConfig
-from ..distribution.annotate import (annotate, current_layout, merge_last,
-                                     pin_grad, reinstall, rows_like,
-                                     site_placements, split_last)
+from ..distribution.annotate import (annotate, current_layout, gathered,
+                                     matmul_tp, merge_last, pin_grad,
+                                     reinstall, residual, rows_like,
+                                     site_placements, split_last, summed_map)
 from ..distribution.sharding import cache_shardings, sharded_zeros
 from .attention import blockwise_attention, decode_attention
 from .layers import (COMPUTE_DTYPE, Norm, apply_rope, dense_init,
@@ -112,8 +118,8 @@ class Attention(nn.Module):
 
     def _project_q(self, x: torch.Tensor) -> torch.Tensor:
         x = annotate(x, "dp", None, None)  # whole sequences (2d_seq)
-        q = split_last(x @ self.wq.to(x.dtype), self.cfg.n_heads,
-                       self.cfg.d_head)
+        q = split_last(x @ gathered(self.wq.to(x.dtype), x),
+                       self.cfg.n_heads, self.cfg.d_head)
         return annotate(q, "dp", None, "tp", None)
 
     def project_kv(self, src: torch.Tensor) -> tuple:
@@ -122,8 +128,9 @@ class Attention(nn.Module):
         cfg = self.cfg
         src = annotate(src, "dp", None, None)  # whole sequences (2d_seq)
         dt = src.dtype
-        return tuple(annotate(split_last(src @ w.to(dt), cfg.n_kv_heads,
-                                         cfg.d_head), "dp", None, "tp", None)
+        return tuple(annotate(split_last(src @ gathered(w.to(dt), src),
+                                         cfg.n_kv_heads, cfg.d_head),
+                              "dp", None, "tp", None)
                      for w in (self.wk, self.wv))
 
     def forward(self, x, positions, *, causal=True, window=None, rope=True,
@@ -140,7 +147,8 @@ class Attention(nn.Module):
             q = apply_rope(q, ang)
             k = apply_rope(k, ang)
         out = blockwise_attention(q, k, v, causal=causal, window=window)
-        return merge_last(out) @ self.wo.to(x.dtype), (k, v)
+        out = merge_last(out)
+        return out @ gathered(self.wo.to(x.dtype), out), (k, v)
 
     def decode(self, x, cache_k, cache_v, idx, *, window=None, rope=True,
                cross=False):
@@ -167,7 +175,8 @@ class Attention(nn.Module):
             total_len = idx + 1
         out = decode_attention(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                                total_len, window=window)
-        return out.reshape(b, 1, -1) @ self.wo.to(x.dtype)
+        out = out.reshape(b, 1, -1)
+        return out @ gathered(self.wo.to(x.dtype), out)
 
 
 def _write_kv(cache_k, cache_v, k, v, idx) -> None:
@@ -208,15 +217,6 @@ def _write_kv(cache_k, cache_v, k, v, idx) -> None:
                                        cache[rows, pos])
 
 
-def _whole(h):
-    """A sublayer's output pinned whole in its sequence before the
-    residual add: under sequence parallelism (2d_seq) the add then slices
-    it, and the backward gathers the sequence-sharded gradient before the
-    products, which DTensor cannot run on a sequence shard folded into
-    their rows (GSPMD gathers there by itself)."""
-    return annotate(h, "dp", None, None)
-
-
 # -------------------------------------------------------------- layer bodies
 class Block(nn.Module):
     """An attention block: attention, then the MLP (kind ``dense``, also
@@ -240,17 +240,17 @@ class Block(nn.Module):
 
     def _ffn(self, x):
         z = self.norm2(x)
-        return x + _whole(self.mlp(z) if self.moe is None else self.moe(z))
+        return x + residual(self.mlp(z) if self.moe is None else self.moe(z))
 
     def _body(self, x, positions, window, causal, enc_out) -> tuple:
         x = annotate(x, "dp", "sp", None)
         h, kv = self.attn(self.norm1(x), positions, causal=causal,
                           window=window)
-        x = x + _whole(h)
+        x = x + residual(h)
         if self.xattn is not None:
             h, _ = self.xattn(self.norm_x(x), positions, causal=False,
                               rope=False, kv_src=enc_out)
-            x = x + _whole(h)
+            x = x + residual(h)
         return self._ffn(x), kv
 
     def prefill(self, x, positions, *, window=None, enc_out=None) -> tuple:
@@ -264,11 +264,11 @@ class Block(nn.Module):
 
     def decode(self, x, cache_k, cache_v, idx, *, window=None, cross=None):
         """``cross``: this layer's static (xk, xv) encoder cache."""
-        x = x + self.attn.decode(self.norm1(x), cache_k, cache_v, idx,
-                                 window=window)
+        x = x + residual(self.attn.decode(self.norm1(x), cache_k, cache_v,
+                                          idx, window=window))
         if self.xattn is not None:
-            x = x + self.xattn.decode(self.norm_x(x), *cross, idx,
-                                      rope=False, cross=True)
+            x = x + residual(self.xattn.decode(self.norm_x(x), *cross, idx,
+                                               rope=False, cross=True))
         return self._ffn(x)
 
 
@@ -282,15 +282,15 @@ class MambaBlock(nn.Module):
         """(x, (conv_state, ssm_state))."""
         x = annotate(x, "dp", "sp", None)
         h, cache = self.mamba(self.norm(x), return_cache=True)
-        return x + _whole(h), cache
+        return x + residual(h), cache
 
     def forward(self, x):
         x = annotate(x, "dp", "sp", None)
-        return x + _whole(self.mamba(self.norm(x))[0])
+        return x + residual(self.mamba(self.norm(x))[0])
 
     def decode(self, x, conv, ssm) -> tuple:
         h, conv, ssm = self.mamba.decode(conv, ssm, self.norm(x))
-        return x + h, conv, ssm
+        return x + residual(h), conv, ssm
 
 
 # ---------------------------------------------------------------------- model
@@ -355,7 +355,9 @@ def _embed_sharded(embed, tokens) -> torch.Tensor:
     gathered on its model dim (FSDP), each rank looks up the tokens of
     its batch rows in its own vocab shard (zero rows elsewhere), and the
     shards' rows are summed (``Partial``: one rank holds each token's
-    row, so the sum is exact)."""
+    row, so the sum is exact). The table's gradient on each rank covers
+    that rank's rows alone and is summed over the batch's axes
+    (``summed_map``)."""
     mesh = embed.device_mesh
     vocab = tuple(Shard(0) if p == Shard(0) else Replicate()
                   for p in embed.placements)
@@ -375,8 +377,8 @@ def _embed_sharded(embed, tokens) -> torch.Tensor:
         rows = table[ids.clamp(0, n_v - 1)].to(COMPUTE_DTYPE)
         return torch.where(inside[..., None], rows, 0)
 
-    return local_map(local, out_placements=list(out),
-                     in_placements=(list(vocab), list(tok)))(
+    return summed_map(local, out_placements=list(out),
+                      in_placements=(list(vocab), list(tok)))(
         embed.redistribute(mesh, vocab), tokens.redistribute(mesh, tok))
 
 
@@ -392,9 +394,9 @@ def _embed(cfg: ArchConfig, params: Model, tokens) -> torch.Tensor:
 
 
 def _unembed(cfg: ArchConfig, params: Model, x) -> torch.Tensor:
-    w = (pin_grad(params.embed).T if cfg.tie_embeddings
-         else params.unembed).to(x.dtype)
-    return softcap((x @ w).float(), cfg.logits_softcap)
+    w = gathered((pin_grad(params.embed).T if cfg.tie_embeddings
+                  else params.unembed).to(x.dtype), x)
+    return softcap(matmul_tp(x, w).float(), cfg.logits_softcap)
 
 
 def _is_global_flags(cfg: ArchConfig):

@@ -14,19 +14,27 @@ reference's ``lax.scan`` does. The remat policy goes to ``forward``,
 which applies it per layer body; the flash-attention and SSD call sites
 differentiate through their own backward (``models/attention.py``,
 ``models/mamba2.py``). With DTensor parameters and batch (the dry run,
-phase 12) the gold logit is the reference's iota-mask reduction, and a
-microbatch is the same slice of each rank's rows (``_split``).
+phase 12) the gold logit is the reference's iota-mask reduction, a
+microbatch is the same slice of each rank's rows where they split, else
+the reference's global rows (``_split``), and each (micro)batch's rows
+are laid out on the widest part of the batch axes that divides them
+(``batch_rows``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                     distribute_tensor)
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distribution.annotate import (batch_rows, current_layout,
+                                     reinstall, resolve_spec)
+from ..distribution.sharding import placements
 from ..models.transformer import Model, _unembed, forward, init_params
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state
 
@@ -67,6 +75,17 @@ def init_train_state(cfg: ArchConfig, opt_cfg: OptimizerConfig,
             "opt": init_opt_state(opt_cfg, dict(params.named_parameters()))}
 
 
+def _iota_like(logits: DTensor, device) -> DTensor:
+    """0 .. V-1 as a DTensor sharded as the last dim of ``logits``,
+    replicated on every other mesh dim (each rank makes its own slice)."""
+    last = logits.ndim - 1
+    mesh = logits.device_mesh
+    want = tuple(Shard(0) if p == Shard(last) else Replicate()
+                 for p in logits.placements)
+    return distribute_tensor(torch.arange(logits.shape[-1], device=device),
+                             mesh, want, src_data_rank=None)
+
+
 def _ce_chunk(cfg: ArchConfig, params: Model, xb, tb, z_loss: float):
     """One chunk's (sum of masked CE, count of real targets)."""
     logits = _unembed(cfg, params, xb)            # (B, chunk, V) fp32
@@ -75,8 +94,9 @@ def _ce_chunk(cfg: ArchConfig, params: Model, xb, tb, z_loss: float):
     if isinstance(logits, DTensor):
         # the reference's iota-mask reduction: a gather across vocab-sharded
         # logits has no sharding DTensor can keep; the masked sum stays
-        # sharded (the same value: one term is nonzero)
-        vocab = torch.arange(logits.shape[-1], device=tb.device)
+        # sharded (the same value: one term is nonzero). The iota is laid
+        # out as the logits' vocab, so each rank's mask covers its shard
+        vocab = _iota_like(logits, tb.device)
         gold = torch.where(vocab == tb.clamp_min(0)[..., None], logits,
                            0.0).sum(-1)
     else:
@@ -87,12 +107,20 @@ def _ce_chunk(cfg: ArchConfig, params: Model, xb, tb, z_loss: float):
     return loss_sum, valid.sum()
 
 
+def _recompute_here() -> tuple:
+    """A chunk's (forward, recompute) contexts: the recompute runs under
+    the annotation mesh the forward ran under (on the card it runs on
+    autograd's device thread, where this thread's is not installed)."""
+    return contextlib.nullcontext(), reinstall()
+
+
 def chunked_cross_entropy(cfg: ArchConfig, params: Model, x: torch.Tensor,
                           targets: torch.Tensor, z_loss: float = 0.0,
                           chunk: int = 512) -> torch.Tensor:
     """CE computed per sequence chunk so the (B,S,V) logits never
     materialize. Each chunk's body is checkpointed: the backward
-    recomputes its logits. Pad targets are -1 and leave the mean."""
+    recomputes its logits, under the forward's annotation mesh. Pad
+    targets are -1 and leave the mean."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -104,7 +132,7 @@ def chunked_cross_entropy(cfg: ArchConfig, params: Model, x: torch.Tensor,
     for i in range(0, s + pad, chunk):
         ls, n = checkpoint(_ce_chunk, cfg, params, x[:, i:i + chunk],
                            targets[:, i:i + chunk], z_loss,
-                           use_reentrant=False)
+                           use_reentrant=False, context_fn=_recompute_here)
         loss_sum, count = loss_sum + ls, count + n
     return loss_sum / torch.clamp_min(count, 1.0)
 
@@ -124,21 +152,36 @@ def make_loss_fn(cfg: ArchConfig, tc: TrainConfig) -> Callable:
 
 
 def _split(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
-    """Microbatch ``i`` of ``n``: rows i·B/n .. (i+1)·B/n, or for a
-    DTensor batch the same slice of each rank's own rows (no collective;
-    the microbatches hold other rows than the plain split, their sum is
-    the same)."""
+    """Microbatch ``i`` of ``n``: rows i·B/n .. (i+1)·B/n. A DTensor batch
+    whose ranks' rows split into ``n`` takes the same slice of each rank's
+    own rows (no collective; the microbatches hold other rows than the
+    plain split, their sum is the same); otherwise it takes the global
+    rows, as the reference's split does, laid out as the model's pins
+    lay out B/n rows (``_global_rows``, under ``batch_rows``)."""
     if isinstance(v, DTensor):
         local = v.to_local()
         if local.shape[0] % n:
-            raise ValueError(f"a rank's {local.shape[0]} rows do not split "
-                             f"into {n} microbatches")
+            return _global_rows(v, i, n)
         size = local.shape[0] // n
         return DTensor.from_local(local[i * size:(i + 1) * size],
                                   v.device_mesh, v.placements,
                                   run_check=False)
     size = v.shape[0] // n
     return v[i * size:(i + 1) * size]
+
+
+def _global_rows(v: DTensor, i: int, n: int) -> DTensor:
+    """Rows i·B/n .. (i+1)·B/n of the DTensor batch leaf ``v``: gathered
+    whole on every rank (an all-gather of the inputs, which need no
+    gradient), sliced, and each rank keeps its own rows of the slice as
+    the model's "dp" pins lay them out (no collective)."""
+    mesh = v.device_mesh
+    size = v.shape[0] // n
+    whole = v.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
+    rows = whole[i * size:(i + 1) * size]
+    want = placements(mesh, resolve_spec(mesh, current_layout(), rows.shape,
+                                         "dp"))
+    return distribute_tensor(rows, mesh, want, src_data_rank=None)
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
@@ -169,8 +212,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
             grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in params.values()]
             for i in range(n):
-                mb = {k: _split(v, i, n) for k, v in batch.items()}
-                mb_loss, mb_grads = value_and_grad(model, params, mb)
+                with batch_rows(rows // n):
+                    mb = {k: _split(v, i, n) for k, v in batch.items()}
+                    mb_loss, mb_grads = value_and_grad(model, params, mb)
                 for acc, g in zip(grads, mb_grads):
                     acc.add_(g)
                 loss = loss + mb_loss
@@ -179,7 +223,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
             for g in grads:
                 g.mul_(inv)
         else:
-            loss, grads = value_and_grad(model, params, batch)
+            with batch_rows(batch["tokens"].shape[0]):
+                loss, grads = value_and_grad(model, params, batch)
         _, _, metrics = adamw_update(opt_cfg, params,
                                      dict(zip(params, grads)), state["opt"])
         metrics["loss"] = loss
