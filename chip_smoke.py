@@ -262,10 +262,14 @@ Phases (any failure ends the script with a non-zero exit):
      ``DRYRUN_WORKERS`` spawned processes each with its own fake world:
      every cell ``ok``, its dominant term, useful ratio, peak GiB a rank,
      its counted FLOPs a rank against ``analytic_cost``'s, collectives
-     by type and trace seconds; and ``DRYRUN_DP_POINT``, olmo-1b
-     train_4k under ``dp`` at microbatches 2 on the multi mesh (a rank
-     holds one row, so the microbatches take the global rows), which
-     must trace ``ok`` at a peak within the card's memory; (c) ``hillclimb`` of
+     by type and trace seconds; the cells whose heads the model axis
+     does not divide (``HEADS_RATIO_BEFORE``) must count fewer FLOPs
+     against ``analytic_cost`` than when every rank ran every head; and
+     ``DRYRUN_DP_POINT``, olmo-1b train_4k under ``dp`` at microbatches
+     2 on the multi mesh (a rank holds one row, so the microbatches take
+     the global rows, padded to the ranks), which must trace ``ok`` at a
+     peak within the card's memory and below ``DP_RATIO_BEFORE`` times
+     ``analytic_cost``; (c) ``hillclimb`` of
      olmo-1b train_4k on the single mesh, 6 evaluations, the card's
      memory as the budget, in the same pool: its improvement over the
      baseline;
@@ -464,18 +468,30 @@ HUB_SCORE_REPEATS = 25       # (e): the paper's repeats
 # published configs' full size, both meshes; (c) the distribution
 # hillclimb
 MESH_DECODE_STEPS = 3
-DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("grok-1-314b", "train_4k"),
+# (the longest traces first, so that the pool's workers end together)
+DRYRUN_CELLS = (("qwen3-moe-235b-a22b", "train_4k"),
+                ("grok-1-314b", "train_4k"),
+                ("qwen3-moe-235b-a22b", "decode_32k"),
+                ("olmo-1b", "train_4k"),
                 ("whisper-small", "train_4k"), ("gemma3-1b", "train_4k"),
                 ("zamba2-1.2b", "prefill_32k"),
                 ("qwen2-vl-2b", "prefill_32k"),
                 ("phi3-mini-3.8b", "prefill_32k"),
-                ("qwen3-moe-235b-a22b", "decode_32k"),
                 ("mamba2-130m", "decode_32k"), ("gemma3-1b", "long_500k"))
+# FLOPs a rank over analytic_cost's on the single-pod mesh where the model
+# axis does not divide the heads, before their heads were sharded
+# unevenly (every rank ran every head); phase 12 fails unless each cell
+# counts fewer
+HEADS_RATIO_BEFORE = {("whisper-small", "train_4k"): 4.610,
+                      ("qwen2-vl-2b", "prefill_32k"): 8.082,
+                      ("gemma3-1b", "train_4k"): 2.350}
 # a dp point whose ranks hold one train row each: its microbatches take
-# the global rows (training/train_step.py ``_split``), each rank its own
-# rows of them (``batch_rows``); its peak must fit the card's memory
+# the global rows (training/train_step.py ``_split``), padded to the 512
+# ranks, one a rank (``_global_rows``); its peak must fit the card's
+# memory, its FLOPs below the 4 rows a rank it counted before the padding
 DRYRUN_DP_POINT = ("olmo-1b", "train_4k", "multi",
                    {"microbatches": 2, "layout": "dp"})
+DP_RATIO_BEFORE = 15.456
 DRYRUN_WORKERS = 4           # processes tracing cells at once (8 cores)
 HILLCLIMB = ("olmo-1b", "train_4k", "single", 6)
 MESH_LIMIT_S = 600           # phase 12 fails past this wall-clock limit
@@ -3738,7 +3754,7 @@ def mesh_phase(device: str, card: str, limit_s: int) -> dict:
         print(f"  (b) fake-world dry run, {len(cells)} cells in "
               f"{DRYRUN_WORKERS} processes ({card}); flops a rank against "
               f"analytic_cost's:")
-        bad = []
+        bad, ratios = [], {}
         for (a, s, m, *kw), f in zip(cells, futures):
             rec = f.result()
             what = f"{a:20s} {s:12s} {m:6s}" + (f" {kw[0]}" if kw else "")
@@ -3752,6 +3768,7 @@ def mesh_phase(device: str, card: str, limit_s: int) -> dict:
             coll = rec["collectives"]["counts"]
             ratio = (cost["hlo_flops_per_chip"]
                      / cost["analytic_flops_per_chip"])
+            ratios[(a, s, m, *map(str, kw))] = ratio
             print(f"      {what} ok  dominant "
                   f"{r['dominant']:10s} useful {r['useful_ratio']:.4f} "
                   f"peak {mem['peak_bytes_per_chip'] / 2**30:.2f} GiB a rank"
@@ -3761,12 +3778,23 @@ def mesh_phase(device: str, card: str, limit_s: int) -> dict:
                   f"local ops, traced in {rec['compile_s']} s")
         if bad:
             fail(f"phase 12 (b): dry-run cells not ok: {bad}")
+        for (a, s), before in HEADS_RATIO_BEFORE.items():
+            if ratios[(a, s, "single")] >= before:
+                fail(f"phase 12 (b): {a} {s} counts "
+                     f"{ratios[(a, s, 'single')]:.3f}x analytic_cost, not "
+                     f"below the {before}x of every rank running every "
+                     f"head")
         # the dp point is the last cell
         peak = futures[-1].result()["memory"]["peak_bytes_per_chip"]
         if peak > hbm:
             fail(f"phase 12 (b): the dp point's peak {peak / 2**30:.2f} "
                  f"GiB a rank is above the card's {hbm / 2**30:.2f} GiB, "
                  f"which the hillclimb's budget rejects")
+        dp_ratio = ratios[(*dp_cell, str(dp_kw))]
+        if dp_ratio >= DP_RATIO_BEFORE:
+            fail(f"phase 12 (b): the dp point counts {dp_ratio:.3f}x "
+                 f"analytic_cost, not below the {DP_RATIO_BEFORE}x of 4 "
+                 f"rows a rank")
         res = climb.result()
         print(f"  (c) hillclimb {arch} {shape} {mesh_kind}, {evals} "
               f"evaluations: baseline {res['baseline']}, best "

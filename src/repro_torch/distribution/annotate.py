@@ -34,14 +34,13 @@ passes through unchanged, mesh or not: only DTensors carry a layout.
 from __future__ import annotations
 
 import contextlib
-import itertools
 import math
 import threading
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                      distribute_tensor)
-from torch.distributed.tensor.experimental import local_map
 
 from .sharding import axes_of, placements
 
@@ -54,40 +53,19 @@ def _current():
 
 
 @contextlib.contextmanager
-def _installed(mesh, layout: str, rows):
-    prev = (*_current(), getattr(_STATE, "rows", None))
-    _STATE.mesh, _STATE.layout, _STATE.rows = mesh, layout, rows
+def _installed(mesh, layout: str):
+    prev = _current()
+    _STATE.mesh, _STATE.layout = mesh, layout
     try:
         yield
     finally:
-        _STATE.mesh, _STATE.layout, _STATE.rows = prev
+        _STATE.mesh, _STATE.layout = prev
 
 
 def annotation_mesh(mesh, layout: str = "2d"):
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, not {layout!r}")
-    return _installed(mesh, layout, None)
-
-
-def batch_rows(n: int):
-    """A context in which the activations' batch axis ("dp") is laid out
-    for a batch of ``n`` rows: where the installed layout's batch axes do
-    not divide ``n``, on the widest of their sub-tuples that does (in
-    mesh order; none if none does), so that each rank keeps its own rows
-    where the reference's GSPMD would, rather than every rank computing
-    them all. The layout's own axes where they divide; nothing without a
-    mesh. The train step enters it for each (micro)batch."""
-    mesh, layout = _current()
-    if mesh is None:
-        return _installed(None, layout, None)
-    ax = axes_of(mesh)
-    dp = _resolve(ax.names, layout, "dp")
-    subs = [c for k in range(len(dp), 0, -1)
-            for c in itertools.combinations(dp, k)]
-    fits = [c for c in subs if n % math.prod(ax.shape[a] for a in c) == 0]
-    rows = max(fits, key=lambda c: math.prod(ax.shape[a] for a in c),
-               default=())
-    return _installed(mesh, layout, rows)
+    return _installed(mesh, layout)
 
 
 def _resolve(names, layout: str, logical: str | None):
@@ -110,16 +88,12 @@ def _resolve(names, layout: str, logical: str | None):
 
 def resolve_spec(mesh, layout: str, shape, *logical_spec) -> tuple:
     """The spec ``annotate`` pins a tensor of ``shape`` to: each logical
-    axis resolved ("dp" as ``batch_rows`` lays it out, where entered),
-    and dropped where its size does not divide the dim."""
+    axis resolved, and dropped where its size does not divide the dim."""
     ax = axes_of(mesh)
     names, sizes = ax.names, ax.shape
-    rows = getattr(_STATE, "rows", None)
     spec = []
     for dim, logical in zip(shape, logical_spec):
         axes = _resolve(names, layout, logical)
-        if logical == "dp" and rows is not None:
-            axes = rows or None
         if axes is None:
             spec.append(None)
             continue
@@ -129,6 +103,17 @@ def resolve_spec(mesh, layout: str, shape, *logical_spec) -> tuple:
         spec.append(axes if dim % size == 0 else None)
     spec += [None] * (len(shape) - len(spec))
     return tuple(spec)
+
+
+def batch_ranks() -> int:
+    """The ranks the installed layout's batch axes ("dp") span: the
+    multiple a train step pads each (micro)batch's rows to; 1 without a
+    mesh."""
+    mesh, layout = _current()
+    if mesh is None:
+        return 1
+    shape = axes_of(mesh).shape
+    return math.prod(shape[a] for a in _resolve(tuple(shape), layout, "dp"))
 
 
 class _Pin(torch.autograd.Function):
@@ -253,6 +238,137 @@ def matmul_tp(x, w):
         x.redistribute(x.device_mesh, xp), w)
 
 
+def product(x, w):
+    """``x @ w`` of a weight ``w`` (D, V) in x's dtype, as the installed
+    layout runs it: for DTensors outside a backward where x is the
+    smaller (``_few_rows``: a decode step's unembedding) on w's shards
+    (``contract_on_shards``), else on w gathered as it is used
+    (``gathered``, ``matmul_tp``)."""
+    if not isinstance(x, DTensor):
+        return x @ w
+    if _few_rows(x, w):
+        return contract_on_shards(x, w)
+    return matmul_tp(x, gathered(w, x))
+
+
+def _few_rows(x, w) -> bool:
+    """Whether the product ``x @ w`` of DTensors, outside a backward, is
+    better split over ``w``'s FSDP shard than run on a gathered ``w``: x
+    holds fewer elements than w (a decode step's tokens against a
+    vocab-wide table) and its rows are split on a mesh dim that shards
+    w's contraction dim, where ``gathered`` would gather w."""
+    if torch.is_grad_enabled() or not (isinstance(x, DTensor)
+                                       and isinstance(w, DTensor)):
+        return False
+    pl = list(zip(w.placements, x.placements))
+    return (x.numel() < w.numel()
+            and all(q == Replicate() for p, q in pl if p == Shard(1))
+            and any(p == q == Shard(0) and w.device_mesh.size(i) > 1
+                    for i, (p, q) in enumerate(pl)))
+
+
+def contract_on_shards(x, w):
+    """``x @ w`` for DTensor x (B, S, D) and w (D, V) where ``_few_rows``:
+    w stays on its shards, as XLA leaves it. On each mesh dim that
+    shards D (FSDP) x's tokens are gathered and its D split alike (an
+    all-to-all of the few tokens); on the tensor-parallel dim, where w is
+    whole, both split D once more where it divides, else w's V is split
+    (unevenly where the dim does not divide V); each rank multiplies its
+    slices, and the partial sums are reduce-scattered back to x's rows
+    (all-reduced where x's rows were whole), the tensor-parallel dim's
+    all-reduced or gathered. V keeps w's own shard, where x is whole."""
+    mesh = w.device_mesh
+    i_tp = tp_dim(mesh)
+    have_x = tuple(x.placements)
+    split = [i for i, p in enumerate(w.placements)
+             if p == Shard(0) and mesh.size(i) > 1]
+    n = math.prod(mesh.size(i) for i in split)
+    vocab = None
+    if i_tp is not None and w.placements[i_tp] == Replicate():
+        if w.shape[0] % (n * mesh.size(i_tp)) == 0:
+            split.append(i_tp)
+        else:
+            vocab = i_tp
+    last = x.ndim - 1
+    xp = tuple(Shard(last) if i in split else p for i, p in enumerate(have_x))
+    wp = tuple(Shard(0) if i in split else Shard(1) if i == vocab else p
+               for i, p in enumerate(w.placements))
+    op = tuple(Partial() if i in split else Shard(last) if q == Shard(1)
+               else p for i, (p, q) in enumerate(zip(xp, wp)))
+    out = summed_map(torch.matmul, out_placements=list(op),
+                     in_placements=(list(xp), list(wp)),
+                     out_shapes=((*x.shape[:-1], w.shape[1]),))(
+        x.redistribute(mesh, xp), w.redistribute(mesh, wp))
+    back = tuple(have_x[i] if i in split and have_x[i] == Shard(0) and
+                 i != i_tp else Replicate() if i in split or i == vocab
+                 else p for i, p in enumerate(op))
+    return out.redistribute(mesh, back)
+
+
+class _ShardToRows(torch.autograd.Function):
+    """A rank's slice ``x`` of its tensor dim ``dim`` (of every row) to
+    the whole of that dim for its own rows, by one all-to-all on each of
+    the mesh dims ``groups`` (sizes ``sizes``, outermost first) that
+    split ``dim`` in that nesting: the innermost first, each sending the
+    block of rows whose index on that mesh dim is j to rank j and laying
+    the blocks received side by side in ``dim`` in rank order, so that
+    the rows end nested as ``dim`` was. The backward runs the inverse."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, groups, sizes):
+        ctx.dim, ctx.groups, ctx.sizes = dim, groups, sizes
+        y = x.reshape(*sizes, x.shape[0] // math.prod(sizes), *x.shape[1:])
+        for m in reversed(range(len(sizes))):
+            y = y.movedim(m, 0).contiguous()
+            y = waited(funcol.all_to_all_single(y, None, None, groups[m]))
+            # the source rank's axis goes before ``dim`` and merges into it
+            y = y.movedim(0, m + dim)
+            y = y.reshape(*y.shape[:m + dim], -1, *y.shape[m + dim + 2:])
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        dim, sizes = ctx.dim, ctx.sizes
+        g = grad
+        for m, n in enumerate(sizes):
+            g = g.reshape(*g.shape[:m + dim], n, -1, *g.shape[m + dim + 1:])
+            g = waited(funcol.all_to_all_single(
+                g.movedim(m + dim, 0).contiguous(), None, None,
+                ctx.groups[m]))
+            g = g.movedim(0, m)
+        return g.reshape(-1, *g.shape[len(sizes) + 1:]), None, None, None
+
+
+def waited(t):
+    """A collective's result as a plain tensor (its views would stay
+    asynchronous wrappers, which a DTensor cannot hold with autograd)."""
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def shard_to_rows(x, dim: int, mesh_dims=None):
+    """DTensor ``x`` sharded on its dim ``dim`` (``Shard(dim)``) on the
+    mesh dims ``mesh_dims`` (default all that do) laid out by rows there
+    instead (``Shard(0)``), by explicit all-to-alls (``_ShardToRows``):
+    the embedding's width, the MoE's experts. DTensor's own
+    ``redistribute`` would gather it whole on a CPU mesh, and its plan
+    across several mesh dims is its own. Where the rows do not divide,
+    or a mesh dim after the first of them also splits the rows, ``x``
+    itself."""
+    mesh = x.device_mesh
+    dims = [i for i, p in enumerate(x.placements) if p == Shard(dim)
+            and (mesh_dims is None or i in mesh_dims)]
+    sizes = tuple(mesh.size(i) for i in dims)
+    if not dims or x.shape[0] % math.prod(sizes) or any(
+            p == Shard(0) for p in x.placements[dims[0]:]):
+        return x
+    want = tuple(Shard(0) if i in dims else p
+                 for i, p in enumerate(x.placements))
+    groups = tuple((mesh, i) for i in dims)
+    return summed_map(lambda t: _ShardToRows.apply(t, dim, groups, sizes),
+                      out_placements=list(want),
+                      in_placements=(list(x.placements),))(x)
+
+
 def _cast(w, dtype):
     """``w`` in ``dtype``: itself where it is already, with no dispatch."""
     return w if w.dtype == dtype else w.to(dtype)
@@ -278,19 +394,22 @@ class _PartialGrad(torch.autograd.Function):
                                   stride=grad.stride()), None
 
 
-def summed_map(fn, out_placements, in_placements):
-    """``local_map(fn, ...)`` whose backward adds the ranks' gradients of a
-    replicated input: an input replicated on a mesh dim that splits an
-    output (a weight beside batch-sharded rows, kv heads beside a rank's
-    q heads) gets on each rank the gradient of that rank's share alone,
-    which ``local_map`` would declare the replicated whole; it is
-    declared a partial sum there instead, so DTensor adds the shares."""
+def summed_map(fn, out_placements, in_placements, out_shapes=None):
+    """``fn`` run rank by rank on the local tensors of DTensor inputs laid
+    out as ``in_placements``, its outputs DTensors laid out as
+    ``out_placements`` (``local_map``'s contract), whose backward adds
+    the ranks' gradients of a replicated input: an input replicated on a
+    mesh dim that splits an output (a weight beside batch-sharded rows,
+    kv heads beside a rank's q heads) gets on each rank the gradient of
+    that rank's share alone, which ``local_map`` would declare the
+    replicated whole; it is declared a partial sum there instead, so
+    DTensor adds the shares. ``out_shapes``: the outputs' global shapes,
+    for outputs sharded unevenly (by default every shard is taken for as
+    large as this rank's); such an output is made contiguous."""
     outs = (out_placements if isinstance(out_placements, tuple)
             else (out_placements,))
     split = {d for pl in outs for d, p in enumerate(pl)
              if isinstance(p, Shard)}
-    mapped = local_map(fn, out_placements=out_placements,
-                       in_placements=in_placements)
 
     def call(*args):
         summed = []
@@ -301,9 +420,28 @@ def summed_map(fn, out_placements, in_placements):
                 if dims:
                     a = _PartialGrad.apply(a, dims)
             summed.append(a)
-        return mapped(*summed)
+        mesh = next(a.device_mesh for a in summed if isinstance(a, DTensor))
+        out = fn(*(waited(a.to_local()) if isinstance(a, DTensor) else a
+                   for a in summed))
+        made = tuple(
+            DTensor.from_local(t, mesh, pl, run_check=False)
+            if shape is None else DTensor.from_local(
+                t.contiguous(), mesh, pl, run_check=False,
+                shape=torch.Size(shape), stride=_contiguous(shape))
+            for t, pl, shape in zip(out if isinstance(out, tuple) else (out,),
+                                    outs, out_shapes or (None,) * len(outs)))
+        return made if isinstance(out_placements, tuple) else made[0]
 
     return call
+
+
+def _contiguous(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    strides, n = [], 1
+    for size in reversed(shape):
+        strides.append(n)
+        n *= size
+    return tuple(reversed(strides))
 
 
 def current_layout() -> str:
@@ -311,11 +449,11 @@ def current_layout() -> str:
 
 
 def reinstall():
-    """A context manager that installs the (mesh, layout, batch rows)
-    installed now, to enter later: a rematerialised layer recomputes
-    inside the backward, which on the card runs on autograd's device
-    thread, where this thread's state is not installed."""
-    return _installed(*_current(), getattr(_STATE, "rows", None))
+    """A context manager that installs the (mesh, layout) installed now,
+    to enter later: a rematerialised layer recomputes inside the
+    backward, which on the card runs on autograd's device thread, where
+    this thread's state is not installed."""
+    return _installed(*_current())
 
 
 def site_placements(x, *logical) -> tuple:
@@ -330,6 +468,102 @@ def site_placements(x, *logical) -> tuple:
     keep = {d for d, name in enumerate(logical) if name is not None}
     return tuple(p if isinstance(p, Shard) and p.dim in keep
                  else Replicate() for p in x.placements)
+
+
+def tp_dim(mesh):
+    """The mesh dim the installed layout's "tp" names, where it has more
+    than one rank; else None."""
+    installed, layout = _current()
+    if installed is None:
+        return None
+    tp = _resolve(mesh.mesh_dim_names, layout, "tp")
+    if tp is None or mesh.size(mesh.mesh_dim_names.index(tp)) == 1:
+        return None
+    return mesh.mesh_dim_names.index(tp)
+
+
+def uneven_heads(x, n: int) -> bool:
+    """Whether ``n`` heads of DTensor ``x`` go on the tensor-parallel axis
+    unevenly: the installed layout has one, of a size that does not
+    divide ``n``."""
+    if not isinstance(x, DTensor):
+        return False
+    i = tp_dim(x.device_mesh)
+    return i is not None and n % x.device_mesh.size(i) != 0
+
+
+def _head_weight(w, shape: tuple, dim: int):
+    """Weight ``w`` gathered whole, viewed as ``shape`` and sharded on the
+    tensor-parallel mesh dim by its dim ``dim`` (whole heads, unevenly)."""
+    mesh = w.device_mesh
+    i = tp_dim(mesh)
+    wp = tuple(Shard(dim) if j == i else Replicate()
+               for j in range(mesh.ndim))
+    whole = w.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    return whole.view(*shape).redistribute(mesh, wp), wp
+
+
+def project_heads(x, w, n: int, d: int, uneven: bool = False):
+    """``x @ w`` viewed as (..., n, d) heads, x (..., D), w (D, n·d). For
+    DTensors pinned ("dp", None, "tp", None): the heads on the
+    tensor-parallel axis where its size divides ``n`` (``split_last``),
+    else held whole, or with ``uneven`` sharded there by whole heads,
+    unevenly: ``torch.chunk``'s rule, ceil(n / ranks) heads a rank and
+    none on the ranks past the last head, as GSPMD pads them (12 heads
+    on 16 ranks: one a rank, four ranks idle). Then each rank projects
+    its own heads (``summed_map``: x's gradient is the sum of the ranks'
+    heads', w's of the ranks' rows)."""
+    if not isinstance(x, DTensor):
+        y = x @ w
+        return y.reshape(*y.shape[:-1], n, d)
+    if not (uneven and uneven_heads(x, n)):
+        return annotate(split_last(x @ gathered(w, x), n, d), "dp", None,
+                        "tp", None)
+    mesh = x.device_mesh
+    i = tp_dim(mesh)
+    wh, wp = _head_weight(w, (w.shape[0], n, d), 1)
+    xp = tuple(Replicate() if j == i else p
+               for j, p in enumerate(x.placements))
+    out = tuple(Shard(x.ndim - 1) if j == i else p for j, p in enumerate(xp))
+
+    def local(xl, wl):
+        y = xl @ wl.reshape(wl.shape[0], -1)
+        return y.reshape(*y.shape[:-1], wl.shape[1], d)
+
+    return summed_map(local, out_placements=list(out),
+                      in_placements=(list(xp), list(wp)),
+                      out_shapes=((*x.shape[:-1], n, d),))(
+        x.redistribute(mesh, xp), wh)
+
+
+def project_from_heads(o, w):
+    """``o`` (..., n, d) merged to (..., n·d) and multiplied by w (n·d,
+    D). Heads a tensor-parallel axis does not divide, as
+    ``project_heads`` lays them out: each rank contracts its heads with
+    their rows of w, and the products are a partial sum on that axis,
+    added where they are next used, as XLA splits a row-parallel
+    product; otherwise the merge of whole-head shards (``merge_last``)
+    and the product with w gathered as it is used."""
+    if not isinstance(o, DTensor):
+        return o.reshape(*o.shape[:-2], -1) @ w
+    n, d = o.shape[-2:]
+    if not uneven_heads(o, n):
+        o = merge_last(o)
+        return o @ gathered(w, o)
+    mesh = o.device_mesh
+    i = tp_dim(mesh)
+    wh, wp = _head_weight(w, (n, d, w.shape[1]), 0)
+    op = tuple(Shard(o.ndim - 2) if j == i else p
+               for j, p in enumerate(o.placements))
+    out = tuple(Partial() if j == i else p for j, p in enumerate(op))
+
+    def local(ol, wl):
+        return ol.reshape(*ol.shape[:-2], -1) @ wl.reshape(-1, wl.shape[-1])
+
+    return summed_map(local, out_placements=list(out),
+                      in_placements=(list(op), list(wp)),
+                      out_shapes=((*o.shape[:-2], w.shape[1]),))(
+        o.redistribute(mesh, op), wh)
 
 
 def split_last(x, n: int, d: int):

@@ -68,7 +68,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.flop_counter import register_flop_formula
 
-from ..distribution.annotate import site_placements, summed_map
+from ..distribution.annotate import (tp_dim, site_placements, summed_map,
+                                     uneven_heads)
 from ..kernels import flash_attention as fa
 
 NEG_INF = -1e30
@@ -196,14 +197,16 @@ def _tile(s: int) -> int:
     return TILE if s >= TILE else SHORT_TILE
 
 
-def _kv_heads(coord: int, hq_local: int, group: int):
-    """The kv heads rank ``coord`` of a head-sharded q reads, for kv heads
-    held whole: a slice when its q heads fall into whole groups, else one
-    kv head a q head (group 1)."""
-    idx = [(coord * hq_local + i) // group for i in range(hq_local)]
+def _kv_heads(first: int, count: int, group: int):
+    """The kv heads that q heads ``first`` .. ``first + count - 1`` read,
+    for kv heads held whole: a slice when they fall into whole groups,
+    else one kv head a q head (group 1); none for no q head."""
+    idx = [(first + i) // group for i in range(count)]
+    if not idx:
+        return slice(0, 0)
     n_kv = idx[-1] - idx[0] + 1
-    if hq_local % n_kv == 0 and all(
-            j == idx[0] + i // (hq_local // n_kv) for i, j in enumerate(idx)):
+    if count % n_kv == 0 and all(
+            j == idx[0] + i // (count // n_kv) for i, j in enumerate(idx)):
         return slice(idx[0], idx[-1] + 1)
     return idx
 
@@ -211,41 +214,49 @@ def _kv_heads(coord: int, hq_local: int, group: int):
 def _sharded_attention(q, k, v, causal, window):
     """``blockwise_attention`` of DTensors: each rank runs the kernel on
     its shard, batch on the dp axes and q heads on tp (``local_map``), so
-    the kernels' (B·H, S, D) reshape happens on local tensors. k and v
-    share q's batch placements; they are head-sharded only where their
-    heads divide as q's do, else held whole and sliced to the kv heads
-    this rank's q heads read."""
+    the kernels' (B·H, S, D) reshape happens on local tensors. q heads the
+    tp axis does not divide stay as ``project_heads`` laid them out,
+    ceil(H / ranks) a rank and none on the last ranks, which launch no
+    kernel. k and v share q's batch placements; they are head-sharded
+    only where their heads divide as q's do (or go as q's uneven heads
+    go), else held whole and sliced to the kv heads this rank's q heads
+    read."""
+    mesh = q.device_mesh
+    h, hkv = q.shape[2], k.shape[2]
     qp = site_placements(q, "dp", None, "tp", None)
-    kvp, tp_dims = [], []
-    for i, p in enumerate(qp):
-        if p == Shard(2):
-            tp_dims.append(i)
+    if uneven_heads(q, h):
+        i = tp_dim(mesh)
+        qp = tuple(Shard(2) if j == i else p for j, p in enumerate(qp))
+    tp_dims = [i for i, p in enumerate(qp) if p == Shard(2)]
     n_tp = 1
     for i in tp_dims:
-        n_tp *= q.device_mesh.size(i)
-    h, hkv = q.shape[2], k.shape[2]
-    kv_sharded = hkv % n_tp == 0
-    for p in qp:
-        kvp.append(p if p != Shard(2) or kv_sharded else Replicate())
-    kvp = tuple(kvp)
+        n_tp *= mesh.size(i)
+    kv_sharded = hkv % n_tp == 0 or hkv == h
+    kvp = tuple(p if p != Shard(2) or kv_sharded else Replicate()
+                for p in qp)
     sel = None
     if tp_dims and not kv_sharded:
         coord = 0
-        mine = q.device_mesh.get_coordinate()
+        mine = mesh.get_coordinate()
         for i in tp_dims:
-            coord = coord * q.device_mesh.size(i) + mine[i]
-        sel = _kv_heads(coord, h // n_tp, h // hkv)
+            coord = coord * mesh.size(i) + mine[i]
+        per = -(-h // n_tp)  # torch.chunk's share: ceil(H / ranks)
+        first = min(coord * per, h)
+        sel = _kv_heads(first, min(per, h - first), h // hkv)
 
     def local(ql, kl, vl):
         if sel is not None:
             kl, vl = kl[:, :, sel], vl[:, :, sel]
+        if ql.shape[2] == 0:  # no head on this rank: no kernel, a 0-size
+            return ql + (kl.sum() + vl.sum()).to(ql.dtype) * 0  # output
         return blockwise_attention(ql, kl, vl, causal=causal, window=window)
 
-    q, k, v = (t.redistribute(t.device_mesh, pl)
+    q, k, v = (t.redistribute(mesh, pl)
                for t, pl in ((q, qp), (k, kvp), (v, kvp)))
     # local_map: a list of placements a tensor, a tuple of them a call
     return summed_map(local, out_placements=list(qp),
-                      in_placements=(list(qp), list(kvp), list(kvp)))(q, k, v)
+                      in_placements=(list(qp), list(kvp), list(kvp)),
+                      out_shapes=(q.shape,) if h % n_tp else None)(q, k, v)
 
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -26,11 +26,11 @@ from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ArchConfig
-from ..distribution.annotate import (annotate, gathered, site_placements,
-                                     summed_map)
+from ..distribution.annotate import (annotate, gathered, shard_to_rows,
+                                     site_placements, summed_map)
 from .layers import activation, dense_init, param
 
 
@@ -142,12 +142,16 @@ class MoE(nn.Module):
         return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, S, D) -> (B, S, D). DTensors: the dispatch and the
-        combine run on each rank's batch rows (``local_map``; the router
-        is gathered whole), the expert products on DTensors (experts on
-        tp where they divide, as the reference's all-to-all lays them
-        out), and the products' output is gathered back to batch rows
-        before the combine (an explicit ``redistribute``)."""
+        """x: (B, S, D) -> (B, S, D). DTensors: the dispatch runs on each
+        rank's batch rows (``local_map``; the router is gathered whole),
+        the expert products on DTensors (experts on tp where they divide,
+        as the reference's all-to-all lays them out), and their output
+        goes back to rows as the reference's layout moves it: split
+        further, over the mesh dims that split the experts (or hold the
+        products' partial sums), where the rank's rows divide, by an
+        all-to-all (a reduce-scatter for partial sums), so each rank
+        combines its share of the rows; gathered back to the rank's rows
+        elsewhere (``_rows_back``)."""
         if not isinstance(x, DTensor):
             buf, *routing = self._dispatch(x, self.router)
             return self._combine(self._experts(buf), *routing)
@@ -160,6 +164,42 @@ class MoE(nn.Module):
             self._dispatch, out_placements=(list(rows),) * 5,
             in_placements=(list(rows), list(whole)))(x, router)
         out = self._experts(annotate(buf, "dp", "tp", None, None))
-        out = out.redistribute(mesh, rows)
-        return summed_map(self._combine, out_placements=list(rows),
-                          in_placements=(list(rows),) * 5)(out, *routing)
+        back = _rows_back(out, rows)
+        out = _experts_to_rows(out, back)
+        routing = [t.redistribute(mesh, back) for t in routing]
+        return summed_map(self._combine, out_placements=list(back),
+                          in_placements=(list(back),) * 5)(out, *routing)
+
+
+def _rows_back(out, rows) -> tuple:
+    """The placements the experts' output (B, E, cap, D) goes back to
+    before the combine: the rows' own (``rows``), split further on each
+    mesh dim whose ranks hold other experts (``Shard(1)``) or partial sums
+    of the products (``Partial``) where the rows left on a rank divide by
+    its size."""
+    mesh = out.device_mesh
+    left = out.shape[0]
+    for i, p in enumerate(rows):
+        if p == Shard(0):
+            left //= mesh.size(i)
+    back = list(rows)
+    for i, p in enumerate(out.placements):
+        n = mesh.size(i)
+        if (n > 1 and rows[i] == Replicate() and left % n == 0
+                and (p == Shard(1) or isinstance(p, Partial))):
+            back[i] = Shard(0)
+            left //= n
+    return tuple(back)
+
+
+def _experts_to_rows(out, back):
+    """The experts' output laid out as ``back``: partial sums
+    reduce-scattered into rows (``redistribute``), experts sent to their
+    rows by explicit all-to-alls (``shard_to_rows``)."""
+    mesh = out.device_mesh
+    have = tuple(out.placements)
+    moves = [i for i, p in enumerate(have) if p == Shard(1)
+             and back[i] == Shard(0)]
+    first = tuple(p if i in moves else back[i] for i, p in enumerate(have))
+    out = shard_to_rows(out.redistribute(mesh, first), 1, moves)
+    return out.redistribute(mesh, back)

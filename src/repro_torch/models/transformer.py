@@ -63,9 +63,13 @@ What changed:
     add, in decode too (``residual``: under 2d_seq a reduce-scatter into
     the sequence shard, its gradient gathered whole before the
     products; GSPMD places these itself), heads split and merged only
-    along whole-head shards (``split_last``, ``merge_last``), positions
-    laid out as the batch rows (``rows_like``), a vocab-parallel
-    embedding lookup (``_embed_sharded``), prefill's cache made as
+    along whole-head shards, and in full-sequence attention, heads a
+    model axis does not divide sharded by whole heads, unevenly, as
+    GSPMD pads them (``project_heads``, ``project_from_heads``),
+    positions laid out as the batch rows (``rows_like``), a
+    vocab-parallel embedding lookup, on the table's width shard in
+    decode (``_embed_sharded``), decode's unembedding split over the
+    table's shards (``product``), prefill's cache made as
     sharded zeros, decode's cache writes rank by rank (``_write_kv``),
     and every call site run rank by rank summing its replicated inputs'
     gradients over the ranks (``summed_map``).
@@ -75,6 +79,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import itertools
+import math
 
 import torch
 from torch import nn
@@ -85,9 +90,10 @@ from torch.utils.checkpoint import (checkpoint,
 from .. import cuda
 from ..configs.base import ArchConfig
 from ..distribution.annotate import (annotate, current_layout, gathered,
-                                     matmul_tp, merge_last, pin_grad,
-                                     reinstall, residual, rows_like,
-                                     site_placements, split_last, summed_map)
+                                     pin_grad, product, project_from_heads,
+                                     project_heads, reinstall, residual,
+                                     rows_like, shard_to_rows,
+                                     site_placements, summed_map)
 from ..distribution.sharding import cache_shardings, sharded_zeros
 from .attention import blockwise_attention, decode_attention
 from .layers import (COMPUTE_DTYPE, Norm, apply_rope, dense_init,
@@ -116,39 +122,42 @@ class Attention(nn.Module):
         self.wo = param(dense_init(gen, h * dh, d, scale=(h * dh) ** -0.5,
                                    device=device))
 
-    def _project_q(self, x: torch.Tensor) -> torch.Tensor:
+    def _project_q(self, x: torch.Tensor, uneven: bool = False
+                   ) -> torch.Tensor:
         x = annotate(x, "dp", None, None)  # whole sequences (2d_seq)
-        q = split_last(x @ gathered(self.wq.to(x.dtype), x),
-                       self.cfg.n_heads, self.cfg.d_head)
-        return annotate(q, "dp", None, "tp", None)
+        return project_heads(x, self.wq.to(x.dtype), self.cfg.n_heads,
+                             self.cfg.d_head, uneven)
 
-    def project_kv(self, src: torch.Tensor) -> tuple:
+    def project_kv(self, src: torch.Tensor, uneven: bool = False) -> tuple:
         """k and v of ``src`` (B, Skv, D), each (B, Skv, Hkv, Dh), without
-        RoPE: the audio cross-attention's static cache."""
+        RoPE: the audio cross-attention's static cache. With ``uneven``,
+        kv heads as many as q's go on a tensor-parallel axis that does
+        not divide them as q's go (``project_heads``); fewer are held
+        whole there."""
         cfg = self.cfg
         src = annotate(src, "dp", None, None)  # whole sequences (2d_seq)
         dt = src.dtype
-        return tuple(annotate(split_last(src @ gathered(w.to(dt), src),
-                                         cfg.n_kv_heads, cfg.d_head),
-                              "dp", None, "tp", None)
-                     for w in (self.wk, self.wv))
+        uneven = uneven and cfg.n_kv_heads == cfg.n_heads
+        return tuple(project_heads(src, w.to(dt), cfg.n_kv_heads, cfg.d_head,
+                                   uneven) for w in (self.wk, self.wv))
 
     def forward(self, x, positions, *, causal=True, window=None, rope=True,
                 kv_src=None) -> tuple:
         """Full-sequence attention. x: (B,S,D); positions: (B,S[,3]); k
         and v from ``kv_src`` (B,Skv,D) where given (cross-attention,
-        which takes no RoPE). Returns (out, (k, v)), k after RoPE."""
+        which takes no RoPE). Returns (out, (k, v)), k after RoPE. Heads
+        that a tensor-parallel axis does not divide go on it unevenly,
+        whole heads a rank (``project_heads``)."""
         if rope and kv_src is not None:
             raise ValueError("cross-attention (kv_src) takes no RoPE")
-        q = self._project_q(x)
-        k, v = self.project_kv(x if kv_src is None else kv_src)
+        q = self._project_q(x, True)
+        k, v = self.project_kv(x if kv_src is None else kv_src, True)
         if rope:
             ang = rope_angles(self.cfg, positions)
             q = apply_rope(q, ang)
             k = apply_rope(k, ang)
         out = blockwise_attention(q, k, v, causal=causal, window=window)
-        out = merge_last(out)
-        return out @ gathered(self.wo.to(x.dtype), out), (k, v)
+        return project_from_heads(out, self.wo.to(x.dtype)), (k, v)
 
     def decode(self, x, cache_k, cache_v, idx, *, window=None, rope=True,
                cross=False):
@@ -351,35 +360,48 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
 
 # ------------------------------------------------------------------ helpers
 def _embed_sharded(embed, tokens) -> torch.Tensor:
-    """``embed[tokens]`` in the compute dtype for DTensors: the table
-    gathered on its model dim (FSDP), each rank looks up the tokens of
-    its batch rows in its own vocab shard (zero rows elsewhere), and the
-    shards' rows are summed (``Partial``: one rank holds each token's
-    row, so the sum is exact). The table's gradient on each rank covers
-    that rank's rows alone and is summed over the batch's axes
-    (``summed_map``)."""
+    """``embed[tokens]`` in the compute dtype for DTensors: on each mesh
+    dim of more than one rank that shards the table's vocab (V), every
+    rank sees every token and looks up those in its vocab shard (zero
+    rows elsewhere), the output a partial sum there (one rank holds each
+    token's row, so the sum is exact). Its width (D, FSDP) is gathered,
+    or, where every token's slice of it holds less than the vocab shard
+    gathered whole would (a decode step), left on its shards, as XLA
+    looks rows up there: the tokens are gathered on those dims too, each
+    rank looks up its slice of every token's width, and an all-to-all
+    sends the rows back to the batch's layout (``shard_to_rows``). The
+    table's gradient on each rank is that of its shard; where the table
+    is whole beside batch-sharded tokens, it covers that rank's rows
+    alone and is summed over the batch's axes (``summed_map``)."""
     mesh = embed.device_mesh
-    vocab = tuple(Shard(0) if p == Shard(0) else Replicate()
-                  for p in embed.placements)
-    # a mesh dim that shards the vocab sees every token
-    tok = tuple(Replicate() if v == Shard(0) else t for v, t in zip(
-        vocab, site_placements(tokens, "dp", None)))
-    out = tuple(Partial() if v == Shard(0) else t for t, v in zip(tok, vocab))
-    coord, n_v = 0, embed.shape[0]
-    for i, p in enumerate(vocab):
+    shards = [(i, p) for i, p in enumerate(embed.placements)
+              if isinstance(p, Shard) and mesh.size(i) > 1]
+    n_v = embed.shape[0] // math.prod(
+        mesh.size(i) for i, p in shards if p == Shard(0))
+    n_d = math.prod(mesh.size(i) for i, p in shards if p == Shard(1))
+    keep = dict(shards) if tokens.numel() < n_v * n_d else {
+        i: p for i, p in shards if p == Shard(0)}
+    table = tuple(keep.get(i, Replicate()) if mesh.size(i) > 1 else p
+                  for i, p in enumerate(embed.placements))
+    tok = tuple(Replicate() if i in keep else s for i, s in enumerate(
+        site_placements(tokens, "dp", None)))
+    out = tuple(Partial() if keep.get(i) == Shard(0) else Shard(tokens.ndim)
+                if keep.get(i) == Shard(1) else s for i, s in enumerate(tok))
+    coord = 0
+    for i, p in shards:
         if p == Shard(0):
             coord = coord * mesh.size(i) + mesh.get_coordinate()[i]
-            n_v //= mesh.size(i)
 
-    def local(table, ids):
+    def local(tbl, ids):
         ids = ids - coord * n_v
         inside = (ids >= 0) & (ids < n_v)
-        rows = table[ids.clamp(0, n_v - 1)].to(COMPUTE_DTYPE)
+        rows = tbl[ids.clamp(0, n_v - 1)].to(COMPUTE_DTYPE)
         return torch.where(inside[..., None], rows, 0)
 
-    return summed_map(local, out_placements=list(out),
-                      in_placements=(list(vocab), list(tok)))(
-        embed.redistribute(mesh, vocab), tokens.redistribute(mesh, tok))
+    x = summed_map(local, out_placements=list(out),
+                   in_placements=(list(table), list(tok)))(
+        embed.redistribute(mesh, table), tokens.redistribute(mesh, tok))
+    return shard_to_rows(x, x.ndim - 1)
 
 
 def _embed(cfg: ArchConfig, params: Model, tokens) -> torch.Tensor:
@@ -394,9 +416,9 @@ def _embed(cfg: ArchConfig, params: Model, tokens) -> torch.Tensor:
 
 
 def _unembed(cfg: ArchConfig, params: Model, x) -> torch.Tensor:
-    w = gathered((pin_grad(params.embed).T if cfg.tie_embeddings
-                  else params.unembed).to(x.dtype), x)
-    return softcap(matmul_tp(x, w).float(), cfg.logits_softcap)
+    w = (pin_grad(params.embed).T if cfg.tie_embeddings
+         else params.unembed).to(x.dtype)
+    return softcap(product(x, w).float(), cfg.logits_softcap)
 
 
 def _is_global_flags(cfg: ArchConfig):

@@ -14,11 +14,12 @@ reference's ``lax.scan`` does. The remat policy goes to ``forward``,
 which applies it per layer body; the flash-attention and SSD call sites
 differentiate through their own backward (``models/attention.py``,
 ``models/mamba2.py``). With DTensor parameters and batch (the dry run,
-phase 12) the gold logit is the reference's iota-mask reduction, a
+phase 12) the gold logit is the reference's iota-mask reduction, the
+logsumexp is taken on each rank's vocab shard (``_sharded_logsumexp``), a
 microbatch is the same slice of each rank's rows where they split, else
-the reference's global rows (``_split``), and each (micro)batch's rows
-are laid out on the widest part of the batch axes that divides them
-(``batch_rows``).
+the reference's global rows (``_split``), and a (micro)batch whose rows
+the batch axes do not divide is padded with rows that are no token up to
+a multiple of their ranks, as GSPMD pads it (``_global_rows``).
 """
 from __future__ import annotations
 
@@ -27,13 +28,14 @@ import dataclasses
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                      distribute_tensor)
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
-from ..distribution.annotate import (batch_rows, current_layout,
-                                     reinstall, resolve_spec)
+from ..distribution.annotate import (batch_ranks, current_layout,
+                                     reinstall, resolve_spec, summed_map)
 from ..distribution.sharding import placements
 from ..models.transformer import Model, _unembed, forward, init_params
 from .optimizer import OptimizerConfig, adamw_update, init_opt_state
@@ -86,12 +88,57 @@ def _iota_like(logits: DTensor, device) -> DTensor:
                              mesh, want, src_data_rank=None)
 
 
+class _ShardLSE(torch.autograd.Function):
+    """The logsumexp of the last dim of ``x``, a rank's local shard of
+    logits sharded on that dim over the mesh dims ``groups``: the shard's
+    max and its sum of ``exp(x - max)`` are combined by a max and a sum
+    all-reduce, so that no rank holds more than its shard; the gradient
+    is the softmax on the shard."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        m = x.amax(-1)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        total = torch.exp(x - m[..., None]).sum(-1)
+        for g in groups:
+            total = funcol.all_reduce(total, "sum", g)
+        lse = m + torch.log(total)
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, lse = ctx.saved_tensors
+        return grad[..., None] * torch.exp(x - lse[..., None]), None
+
+
+def _sharded_logsumexp(logits):
+    """``torch.logsumexp`` of the last dim of DTensor ``logits``. Logits
+    sharded on it (a vocab on the model axis) take it on each rank's
+    shard (``_ShardLSE``), where DTensor would gather them whole; the
+    result is laid out as the logits' other dims."""
+    last = logits.ndim - 1
+    mesh, pl = logits.device_mesh, tuple(logits.placements)
+    dims = [i for i, p in enumerate(pl) if p == Shard(last)
+            and mesh.size(i) > 1]
+    if not dims or any(isinstance(p, Partial) for p in pl):
+        return torch.logsumexp(logits, dim=-1)
+    groups = [(mesh, i) for i in dims]
+    out = tuple(Replicate() if p == Shard(last) else p for p in pl)
+    return summed_map(lambda x: _ShardLSE.apply(x, groups),
+                      out_placements=list(out), in_placements=(list(pl),))(
+        logits)
+
+
 def _ce_chunk(cfg: ArchConfig, params: Model, xb, tb, z_loss: float):
     """One chunk's (sum of masked CE, count of real targets)."""
     logits = _unembed(cfg, params, xb)            # (B, chunk, V) fp32
-    lse = torch.logsumexp(logits, dim=-1)
+    sharded = isinstance(logits, DTensor)
+    lse = (_sharded_logsumexp(logits) if sharded
+           else torch.logsumexp(logits, dim=-1))
     valid = (tb >= 0).float()
-    if isinstance(logits, DTensor):
+    if sharded:
         # the reference's iota-mask reduction: a gather across vocab-sharded
         # logits has no sharding DTensor can keep; the masked sum stays
         # sharded (the same value: one term is nonzero). The iota is laid
@@ -151,17 +198,18 @@ def make_loss_fn(cfg: ArchConfig, tc: TrainConfig) -> Callable:
     return loss_fn
 
 
-def _split(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+def _split(v: torch.Tensor, i: int, n: int, ranks: int = 1,
+           pad: int = 0) -> torch.Tensor:
     """Microbatch ``i`` of ``n``: rows i·B/n .. (i+1)·B/n. A DTensor batch
-    whose ranks' rows split into ``n`` takes the same slice of each rank's
-    own rows (no collective; the microbatches hold other rows than the
-    plain split, their sum is the same); otherwise it takes the global
-    rows, as the reference's split does, laid out as the model's pins
-    lay out B/n rows (``_global_rows``, under ``batch_rows``)."""
+    whose ranks' rows split into ``n``, into as many rows as the batch
+    axes' ``ranks`` divide, takes the same slice of each rank's own rows
+    (no collective; the microbatches hold other rows than the plain
+    split, their sum is the same); otherwise it takes the global rows, as
+    the reference's split does, padded (``_global_rows``)."""
     if isinstance(v, DTensor):
         local = v.to_local()
-        if local.shape[0] % n:
-            return _global_rows(v, i, n)
+        if local.shape[0] % n or (v.shape[0] // n) % ranks:
+            return _global_rows(v, i, n, ranks, pad)
         size = local.shape[0] // n
         return DTensor.from_local(local[i * size:(i + 1) * size],
                                   v.device_mesh, v.placements,
@@ -170,18 +218,37 @@ def _split(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
     return v[i * size:(i + 1) * size]
 
 
-def _global_rows(v: DTensor, i: int, n: int) -> DTensor:
+def _global_rows(v: DTensor, i: int, n: int, ranks: int,
+                 pad: int) -> DTensor:
     """Rows i·B/n .. (i+1)·B/n of the DTensor batch leaf ``v``: gathered
     whole on every rank (an all-gather of the inputs, which need no
-    gradient), sliced, and each rank keeps its own rows of the slice as
-    the model's "dp" pins lay them out (no collective)."""
+    gradient) and sliced; padded with rows of ``pad`` up to a multiple of
+    the batch axes' ``ranks``, as GSPMD pads a dim its shards do not
+    divide, so that the "dp" pins keep every batch axis and each rank
+    computes its own rows (one a rank where there are fewer rows than
+    ranks); each rank keeps its rows of the slice as those pins lay them
+    out (no collective). A pad row's tokens (-1) are no token: their
+    embedding is zero and they are no target, so they leave the loss and
+    the gradients."""
     mesh = v.device_mesh
     size = v.shape[0] // n
     whole = v.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
     rows = whole[i * size:(i + 1) * size]
+    extra = (-size) % ranks
+    if extra:
+        rows = torch.cat([rows, rows.new_full((extra, *rows.shape[1:]),
+                                              pad)])
     want = placements(mesh, resolve_spec(mesh, current_layout(), rows.shape,
                                          "dp"))
     return distribute_tensor(rows, mesh, want, src_data_rank=None)
+
+
+def _microbatch(batch: dict, i: int, n: int) -> dict:
+    """Microbatch ``i`` of ``n`` of every leaf (``_split``); tokens pad
+    with -1."""
+    ranks = batch_ranks()
+    return {k: _split(v, i, n, ranks, -1 if k == "tokens" else 0)
+            for k, v in batch.items()}
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
@@ -212,9 +279,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
             grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in params.values()]
             for i in range(n):
-                with batch_rows(rows // n):
-                    mb = {k: _split(v, i, n) for k, v in batch.items()}
-                    mb_loss, mb_grads = value_and_grad(model, params, mb)
+                mb_loss, mb_grads = value_and_grad(
+                    model, params, _microbatch(batch, i, n))
                 for acc, g in zip(grads, mb_grads):
                     acc.add_(g)
                 loss = loss + mb_loss
@@ -223,8 +289,9 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
             for g in grads:
                 g.mul_(inv)
         else:
-            with batch_rows(batch["tokens"].shape[0]):
-                loss, grads = value_and_grad(model, params, batch)
+            if isinstance(batch["tokens"], DTensor):
+                batch = _microbatch(batch, 0, 1)
+            loss, grads = value_and_grad(model, params, batch)
         _, _, metrics = adamw_update(opt_cfg, params,
                                      dict(zip(params, grads)), state["opt"])
         metrics["loss"] = loss

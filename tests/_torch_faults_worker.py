@@ -14,10 +14,13 @@ Kept apart from the test module so that a spawned rank imports torch and
     sublayer output's residual pin in the forward (``residual``), caught
     with ``CommRecorder``;
   * ``2d`` layout, the families whose call sites run rank by rank
-    (``summed_map``: the tied embedding's lookup, kv heads held whole
-    beside sharded q heads, the causal conv's and the scan's replicated
-    inputs, the MoE's router): gradients with DTensor parameters against
-    the same calls unsharded, on the port's own weights.
+    (``summed_map``: the tied embedding's lookup on the table's shard,
+    kv heads held whole beside sharded q heads, q heads the model axis
+    does not divide, none on a rank, the causal conv's and the scan's
+    replicated inputs, the MoE's router and its combine's all-to-all,
+    the loss's logsumexp on the vocab shard): gradients with DTensor
+    parameters against the same calls unsharded, on the port's own
+    weights.
 """
 import contextlib
 import dataclasses
@@ -81,17 +84,25 @@ def _grads(cfg, model, batch, loss_fn):
     return float(_whole(loss)), {n: _whole(g) for n, g in zip(names, grads)}
 
 
-def _family(name, n_layers, tokens, mesh):
-    """2d: (loss, grads) unsharded and with DTensor parameters."""
-    cfg = dataclasses.replace(get_config(name).tiny(), n_layers=n_layers)
-    tokens = tokens % cfg.vocab
+def _family(name, n_layers, overrides, tokens, mesh, dims=None):
+    """2d: (loss, grads) unsharded and with DTensor parameters, of the
+    tiny config of ``name`` with ``n_layers`` and ``overrides``, on
+    ``mesh`` or on a mesh of ``dims`` ((shape, names)) where given."""
+    if dims is not None:
+        mesh = init_device_mesh("cpu", dims[0], mesh_dim_names=dims[1])
+    cfg = dataclasses.replace(get_config(name).tiny(), n_layers=n_layers,
+                              **overrides)
+    batch = {"tokens": tokens % cfg.vocab}
+    if cfg.family == "audio":
+        batch["audio_embeds"] = torch.randn(
+            (tokens.shape[0], cfg.n_audio_frames, cfg.d_model),
+            generator=torch.Generator().manual_seed(2))
     loss_fn = ts.make_loss_fn(cfg, ts.TrainConfig(remat="none"))
     model = tr.init_params(cfg, torch.Generator().manual_seed(1),
                            device="cpu")
-    plain = _grads(cfg, model, {"tokens": tokens}, loss_fn)
+    plain = _grads(cfg, model, batch, loss_fn)
     sh.distribute_model(model, mesh)
-    batch = sh.distribute_tree({"tokens": tokens}, mesh, sh.batch_shardings(
-        mesh, {"tokens": tokens}))
+    batch = sh.distribute_tree(batch, mesh, sh.batch_shardings(mesh, batch))
     with an.annotation_mesh(mesh), implicit_replication():
         return plain, _grads(cfg, model, batch, loss_fn)
 
@@ -149,8 +160,9 @@ def run(rank: int, world: int, store_path: str, in_path: str,
                "microbatches": _step(cfg, tree, {"tokens": tokens}, 2,
                                      mesh, "dp")}
         out["seq"] = _seq_parallel(cfg, tree, tokens, mesh)
-        out["families"] = {name: _family(name, n, tokens, mesh)
-                           for name, n in given["families"]}
+        out["families"] = {key: _family(*spec[:3], tokens, mesh,
+                                        *spec[3:])
+                           for key, spec in given["families"].items()}
         if rank == 0:
             torch.save(out, out_path)
     finally:
