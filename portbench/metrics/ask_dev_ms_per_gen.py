@@ -1,0 +1,12 @@
+"""Device time of the kernels launched in ``free_run.ask`` (the strategy's
+``ask``: its draws, the decode, the rows), in ms a generation of the
+traced calls; nothing where the trace holds no such kernel."""
+from portbench import phases
+
+
+def read(run):
+    p = phases.of(run.trace)
+    s = p.kernel_seconds("free_run.ask") if p else None
+    if s is None:
+        return None
+    return s * 1e3 / (run.trace.calls * run.facts["generations"])

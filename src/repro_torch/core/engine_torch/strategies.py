@@ -53,6 +53,8 @@ copied to the host once, after the loop.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -378,6 +380,41 @@ def _freeze(stopped: torch.Tensor, old: dict, new: dict) -> dict:
 
 
 # ------------------------------------------------------------------ driver
+# free_run calls made while a torch.profiler records (none count
+# otherwise): R x the generations stepped, the run-generations whose run
+# had not stopped at the generation's start, and the generations whose
+# start found every run stopped
+calls = 0
+run_gens = 0
+live_run_gens = 0
+dead_gens = 0
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _no_span(name: str):
+    return _NO_SPAN
+
+
+def _span(name: str):
+    """A host range on the profiler's clock. Not ``record_function``:
+    the profiler mirrors each of those as a device-side range, which a
+    reader of the trace's device operations would take for a kernel."""
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+def _count(runs: int, gens: int, stopped_gens: np.ndarray) -> None:
+    """Adds one traced call of ``gens`` generations to the counters;
+    ``stopped_gens[r]``: the generations whose start found run r stopped.
+    A run stays stopped, so every run was stopped at the start of the
+    last ``stopped_gens.min()`` generations and of no other."""
+    global calls, run_gens, live_run_gens, dead_gens
+    calls += 1
+    run_gens += runs * gens
+    live_run_gens += runs * gens - int(stopped_gens.sum(dtype=np.int64))
+    dead_gens += int(stopped_gens.min(initial=gens))
+
+
 def free_run(cache, strategy: str = "genetic_algorithm", *, runs: int = 32,
              seed: int = 0, generations: "int | None" = None,
              max_seconds: "float | None" = None,
@@ -390,80 +427,119 @@ def free_run(cache, strategy: str = "genetic_algorithm", *, runs: int = 32,
     curves of shape (runs, generations)).
 
     Pinned-seed deterministic on one device; statistically equivalent to
-    the numpy strategies (module docstring has the exact contract)."""
-    impl = FREE_RUN_STRATEGIES[strategy]
-    unknown = set(hyperparams) - set(impl.defaults)
-    if unknown:
-        raise ValueError(f"{strategy}: unknown hyperparameters "
-                         f"{sorted(unknown)}")
-    hp = {**impl.defaults, **hyperparams}
-    dev = cuda.resolve_device(device)
-    compiled = cache.space.compiled
-    cols = cache.columns
-    rt = replay_tables(cols, compiled, dev)
-    if not compiled.n_valid:
-        raise ValueError(f"space {compiled.name!r} has no valid configs")
-    st = space_tables(compiled, dev)
-    R = int(runs)
-    P = int(hp.get("popsize", 20))
-    G = int(generations if generations is not None
-            else hp.get("maxiter", 100))
-    mean_charge = cache.mean_eval_charge() if rt.has_miss else 0.0
-    max_s = _NO_MAX_S if max_seconds is None else float(max_seconds)
-    max_e = _NO_MAX_E if max_evals is None else int(max_evals)
-    g = torch.Generator(device=dev)
-    g.manual_seed(int(seed))
-    c = _Ctx(st, dev, R, P, hp, g)
-    state = impl.init(c)
+    the numpy strategies (module docstring has the exact contract).
 
-    n_valid = st.n_valid
-    # seen[r, row]; refused entries scatter into the spare last column
-    seen = torch.zeros((R, n_valid + 1), dtype=torch.uint8, device=dev)
-    spare = torch.full((R, P), n_valid, dtype=torch.int64, device=dev)
-    earlier = torch.ones((P, P), dtype=torch.bool, device=dev).tril(-1)
-    spent = torch.zeros(R, dtype=torch.float64, device=dev)
-    evals = torch.zeros(R, dtype=torch.int64, device=dev)
-    cap_s = torch.full((R,), max_s, dtype=torch.float64, device=dev)
-    cap_e = torch.full((R,), max_e, dtype=torch.int64, device=dev)
-    best_v = torch.full((R,), INF, dtype=torch.float64, device=dev)
-    best_r = torch.full((R,), -1, dtype=torch.int64, device=dev)
-    fresh_n = torch.zeros(R, dtype=torch.int64, device=dev)
-    stopped = torch.zeros(R, dtype=torch.bool, device=dev)
-    curve_spent = torch.empty((R, G), dtype=torch.float64, device=dev)
-    curve_best = torch.empty((R, G), dtype=torch.float64, device=dev)
-    for gen in range(G):
-        rows, state_a = impl.ask(state, c)
-        rows = rows.contiguous()
-        # within-generation first occurrence: P is population-sized, so
-        # the P x P pairwise compare beats any n_valid-sized scatter
-        dup = ((rows[:, :, None] == rows[:, None, :]) & earlier).any(dim=2)
-        fresh = ~dup & (torch.gather(seen, 1, rows) == 0)
-        accept, _t, value, _charge, spent, evals, exh = budget_scan(
-            rows, fresh, rt.col_of_row, rt.time_s, rt.charge_s, mean_charge,
-            spent, evals, cap_s, cap_e)
-        seen.scatter_(1, torch.where(accept, rows, spare), 1)
-        fresh_n += accept.sum(dim=1, dtype=torch.int64)
-        finite = torch.isfinite(value)
-        okv = torch.where(accept & finite, value, INF)
-        j = torch.argmin(okv, dim=1)[:, None]
-        vj = torch.gather(okv, 1, j)[:, 0]
-        better = vj < best_v
-        best_v = torch.where(better, vj, best_v)
-        best_r = torch.where(better, torch.gather(rows, 1, j)[:, 0], best_r)
-        fitness = torch.where(finite, value, FAILURE_FITNESS)
-        state_b = impl.tell(state_a, rows, fitness, c)
-        # once exhausted the numpy driver stops stepping the strategy;
-        # budget/seen/best are already monotone-frozen (no accepts can
-        # follow a refusal), so only the state needs the freeze
-        state = _freeze(stopped, state, state_b)
-        stopped = stopped | exh
-        curve_spent[:, gen] = spent
-        curve_best[:, gen] = best_v
-    return {"best_value": best_v.cpu().numpy(),
-            "best_row": best_r.to(torch.int32).cpu().numpy(),
-            "spent_seconds": spent.cpu().numpy(),
-            "spent_evals": evals.cpu().numpy(),
-            "fresh_evals": fresh_n.cpu().numpy(),
-            "exhausted": stopped.cpu().numpy(),
-            "curve_spent": curve_spent.cpu().numpy(),
-            "curve_best": curve_best.cpu().numpy()}
+    While a ``torch.profiler`` records, the call marks its phases with
+    host spans (``free_run``; ``free_run.init``; one ``free_run.gen`` a
+    generation around ``free_run.ask``, ``.dedup``, ``.scan``, ``.tell``
+    and ``.commit``; ``free_run.to_host``), every kernel inside one of the
+    leaves, and adds to the module's counters: one more launch a
+    generation adds ``stopped`` to a per-run count, copied with the
+    outputs. Otherwise it launches, allocates and counts nothing more."""
+    tracing = torch.autograd.profiler._is_profiler_enabled
+    span = _span if tracing else _no_span
+    with span("free_run"):
+        with span("free_run.init"):
+            impl = FREE_RUN_STRATEGIES[strategy]
+            unknown = set(hyperparams) - set(impl.defaults)
+            if unknown:
+                raise ValueError(f"{strategy}: unknown hyperparameters "
+                                 f"{sorted(unknown)}")
+            hp = {**impl.defaults, **hyperparams}
+            dev = cuda.resolve_device(device)
+            compiled = cache.space.compiled
+            cols = cache.columns
+            rt = replay_tables(cols, compiled, dev)
+            if not compiled.n_valid:
+                raise ValueError(
+                    f"space {compiled.name!r} has no valid configs")
+            st = space_tables(compiled, dev)
+            R = int(runs)
+            P = int(hp.get("popsize", 20))
+            G = int(generations if generations is not None
+                    else hp.get("maxiter", 100))
+            mean_charge = cache.mean_eval_charge() if rt.has_miss else 0.0
+            max_s = _NO_MAX_S if max_seconds is None else float(max_seconds)
+            max_e = _NO_MAX_E if max_evals is None else int(max_evals)
+            g = torch.Generator(device=dev)
+            g.manual_seed(int(seed))
+            c = _Ctx(st, dev, R, P, hp, g)
+            state = impl.init(c)
+
+            n_valid = st.n_valid
+            # seen[r, row]; refused entries scatter into the spare last
+            # column
+            seen = torch.zeros((R, n_valid + 1), dtype=torch.uint8,
+                               device=dev)
+            spare = torch.full((R, P), n_valid, dtype=torch.int64,
+                               device=dev)
+            earlier = torch.ones((P, P), dtype=torch.bool,
+                                 device=dev).tril(-1)
+            spent = torch.zeros(R, dtype=torch.float64, device=dev)
+            evals = torch.zeros(R, dtype=torch.int64, device=dev)
+            cap_s = torch.full((R,), max_s, dtype=torch.float64, device=dev)
+            cap_e = torch.full((R,), max_e, dtype=torch.int64, device=dev)
+            best_v = torch.full((R,), INF, dtype=torch.float64, device=dev)
+            best_r = torch.full((R,), -1, dtype=torch.int64, device=dev)
+            fresh_n = torch.zeros(R, dtype=torch.int64, device=dev)
+            stopped = torch.zeros(R, dtype=torch.bool, device=dev)
+            curve_spent = torch.empty((R, G), dtype=torch.float64,
+                                      device=dev)
+            curve_best = torch.empty((R, G), dtype=torch.float64,
+                                     device=dev)
+            # traced calls: the generations whose start found each run
+            # stopped, an int64 tensor once the first generation adds to it
+            stopped_gens = 0
+        for gen in range(G):
+            with span("free_run.gen"):
+                with span("free_run.ask"):
+                    rows, state_a = impl.ask(state, c)
+                    rows = rows.contiguous()
+                with span("free_run.dedup"):
+                    # within-generation first occurrence: P is
+                    # population-sized, so the P x P pairwise compare
+                    # beats any n_valid-sized scatter
+                    dup = ((rows[:, :, None] == rows[:, None, :])
+                           & earlier).any(dim=2)
+                    fresh = ~dup & (torch.gather(seen, 1, rows) == 0)
+                with span("free_run.scan"):
+                    accept, _t, value, _charge, spent, evals, exh = (
+                        budget_scan(rows, fresh, rt.col_of_row, rt.time_s,
+                                    rt.charge_s, mean_charge, spent, evals,
+                                    cap_s, cap_e))
+                with span("free_run.tell"):
+                    finite = torch.isfinite(value)
+                    fitness = torch.where(finite, value, FAILURE_FITNESS)
+                    state_b = impl.tell(state_a, rows, fitness, c)
+                with span("free_run.commit"):
+                    seen.scatter_(1, torch.where(accept, rows, spare), 1)
+                    fresh_n += accept.sum(dim=1, dtype=torch.int64)
+                    okv = torch.where(accept & finite, value, INF)
+                    j = torch.argmin(okv, dim=1)[:, None]
+                    vj = torch.gather(okv, 1, j)[:, 0]
+                    better = vj < best_v
+                    best_v = torch.where(better, vj, best_v)
+                    best_r = torch.where(
+                        better, torch.gather(rows, 1, j)[:, 0], best_r)
+                    # once exhausted the numpy driver stops stepping the
+                    # strategy; budget/seen/best are already
+                    # monotone-frozen (no accepts can follow a refusal),
+                    # so only the state needs the freeze
+                    state = _freeze(stopped, state, state_b)
+                    if tracing:
+                        stopped_gens = stopped_gens + stopped
+                    stopped = stopped | exh
+                    curve_spent[:, gen] = spent
+                    curve_best[:, gen] = best_v
+        with span("free_run.to_host"):
+            out = {"best_value": best_v.cpu().numpy(),
+                   "best_row": best_r.to(torch.int32).cpu().numpy(),
+                   "spent_seconds": spent.cpu().numpy(),
+                   "spent_evals": evals.cpu().numpy(),
+                   "fresh_evals": fresh_n.cpu().numpy(),
+                   "exhausted": stopped.cpu().numpy(),
+                   "curve_spent": curve_spent.cpu().numpy(),
+                   "curve_best": curve_best.cpu().numpy()}
+            if tracing:
+                _count(R, G, torch.as_tensor(stopped_gens).cpu().numpy())
+    return out

@@ -593,12 +593,16 @@ class TestLiveTree:
                                       "n = fresh_n.tolist()"])
     def test_sync_added_to_generation_loop_is_caught(self, tmp_path, sync):
         src = (PORT / "core" / "engine_torch" / "strategies.py").read_text()
-        anchor = "        stopped = stopped | exh\n"
+        anchor = "stopped = stopped | exh\n"
         assert src.count(anchor) == 1
+        # the sync goes right after the anchor, at its indentation
+        line = src[src.rindex("\n", 0, src.index(anchor)) + 1:
+                   src.index(anchor) + len(anchor)]
+        indent = line[:len(line) - len(line.lstrip())]
         mutant = tmp_path / "repro_torch" / "core" / "engine_torch"
         mutant.mkdir(parents=True)
         (mutant / "strategies.py").write_text(
-            src.replace(anchor, anchor + f"        {sync}\n"))
+            src.replace(line, line + f"{indent}{sync}\n"))
         res = lint_paths([str(mutant / "strategies.py")])
         assert [(f.rule, f.path) for f in res.findings] == [
             ("device-sync-in-loop", "core/engine_torch/strategies.py")]
