@@ -49,7 +49,8 @@ reproduce bit for bit against themselves on one device.
 
 The loop never synchronises with the host: the budget, ``seen``, the
 best values and the curves stay device tensors, and each output is
-copied to the host once, after the loop.
+copied to the host once, after the loop; on the card without blocking,
+behind one synchronisation.
 """
 from __future__ import annotations
 
@@ -415,6 +416,16 @@ def _count(runs: int, gens: int, stopped_gens: np.ndarray) -> None:
     dead_gens += int(stopped_gens.min(initial=gens))
 
 
+def _pinned_numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy view of a pinned host block from PyTorch's caching host
+    allocator, into which ``t`` is copied without blocking on the current
+    stream: it holds ``t`` once the stream is synchronised. The block
+    returns to the allocator only once the view is freed, so no later
+    call writes into an array a caller holds."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+        t, non_blocking=True).numpy()
+
+
 def free_run(cache, strategy: str = "genetic_algorithm", *, runs: int = 32,
              seed: int = 0, generations: "int | None" = None,
              max_seconds: "float | None" = None,
@@ -428,6 +439,12 @@ def free_run(cache, strategy: str = "genetic_algorithm", *, runs: int = 32,
 
     Pinned-seed deterministic on one device; statistically equivalent to
     the numpy strategies (module docstring has the exact contract).
+
+    On the card the arrays are numpy views of pinned host blocks from
+    PyTorch's caching host allocator, filled by non-blocking copies and
+    reached by one synchronisation of the stream; they stay pinned while
+    the caller holds them. On the CPU they may share memory with the
+    call's tensors, which the call no longer uses.
 
     While a ``torch.profiler`` records, the call marks its phases with
     host spans (``free_run``; ``free_run.init``; one ``free_run.gen`` a
@@ -532,14 +549,18 @@ def free_run(cache, strategy: str = "genetic_algorithm", *, runs: int = 32,
                     curve_spent[:, gen] = spent
                     curve_best[:, gen] = best_v
         with span("free_run.to_host"):
-            out = {"best_value": best_v.cpu().numpy(),
-                   "best_row": best_r.to(torch.int32).cpu().numpy(),
-                   "spent_seconds": spent.cpu().numpy(),
-                   "spent_evals": evals.cpu().numpy(),
-                   "fresh_evals": fresh_n.cpu().numpy(),
-                   "exhausted": stopped.cpu().numpy(),
-                   "curve_spent": curve_spent.cpu().numpy(),
-                   "curve_best": curve_best.cpu().numpy()}
+            out = {"best_value": best_v, "best_row": best_r.to(torch.int32),
+                   "spent_seconds": spent, "spent_evals": evals,
+                   "fresh_evals": fresh_n, "exhausted": stopped,
+                   "curve_spent": curve_spent, "curve_best": curve_best}
             if tracing:
-                _count(R, G, torch.as_tensor(stopped_gens).cpu().numpy())
+                out["stopped_gens"] = torch.as_tensor(stopped_gens,
+                                                      device=dev)
+            card = dev != "cpu"
+            to_host = _pinned_numpy if card else torch.Tensor.numpy
+            out = {k: to_host(v) for k, v in out.items()}
+            if card:  # one wait for every copy
+                torch.cuda.current_stream(dev).synchronize()
+            if tracing:
+                _count(R, G, out.pop("stopped_gens"))
     return out

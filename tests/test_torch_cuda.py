@@ -1275,6 +1275,70 @@ def test_free_run_on_card_random_search_exhausts(card):
     assert (out["best_value"] == cache.optimum).all()
 
 
+# The outputs reach the host through pinned blocks of the caching host
+# allocator and one synchronisation of the stream
+FREE_DTYPES = {"best_value": np.float64, "best_row": np.int32,
+               "spent_seconds": np.float64, "spent_evals": np.int64,
+               "fresh_evals": np.int64, "exhausted": np.bool_,
+               "curve_spent": np.float64, "curve_best": np.float64}
+
+
+def _count_syncs(fn) -> int:
+    """Host synchronisations of one ``fn()``: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("name", FREE_NAMES)
+def test_free_run_on_card_outputs_outlive_later_calls(card, name):
+    """A call's arrays share no memory with what a later call writes."""
+    cache = _cache()
+    kw = _free_kw(cache)
+    kept = engine_torch.free_run(cache, name, device=card, **kw)
+    copies = {k: np.copy(v) for k, v in kept.items()}
+    later = [engine_torch.free_run(cache, name, device=card,
+                                   **{**kw, "seed": seed})
+             for seed in (4, 5)]
+    assert any(not np.array_equal(later[0][k], copies[k]) for k in copies)
+    for k in copies:
+        assert np.array_equal(kept[k], copies[k]), k
+        assert not any(np.shares_memory(kept[k], out[k]) for out in later), k
+
+
+@pytest.mark.parametrize("name", FREE_NAMES)
+def test_free_run_on_card_outputs_keep_their_form(card, name):
+    cache = _cache()
+    kw = _free_kw(cache)
+    out = engine_torch.free_run(cache, name, device=card, **kw)
+    R, G = kw["runs"], kw["generations"]
+    assert list(out) == list(FREE_DTYPES)
+    for k, dtype in FREE_DTYPES.items():
+        a = out[k]
+        assert isinstance(a, np.ndarray) and a.dtype == dtype, k
+        assert a.shape == ((R, G) if k.startswith("curve") else (R,)), k
+        assert a.flags.c_contiguous and a.flags.writeable, k
+
+
+@pytest.mark.parametrize("name", FREE_NAMES)
+def test_free_run_on_card_syncs_independent_of_generations(card, name):
+    cache = _cache()
+    kw = _free_kw(cache)
+    engine_torch.free_run(cache, name, device=card, **kw)  # warm the tables
+    syncs = {g: _count_syncs(lambda g=g: engine_torch.free_run(
+        cache, name, device=card, **{**kw, "generations": g}))
+        for g in (kw["generations"], 2 * kw["generations"])}
+    assert len(set(syncs.values())) == 1 and min(syncs.values()) > 0, syncs
+
+
 # ---------------------------------------------------- the hub on the card
 def _calls(cache) -> int:
     """Kernel calls a live recording made: one warm-up and one a repeat
