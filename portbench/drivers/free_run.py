@@ -29,6 +29,7 @@ from portbench.reference.recording import Recording, sha256_of
 
 SCAN_KERNEL = "budget_scan_kernel"
 CHECK_RUNS = 512          # runs of a sampled call the reference follows
+WORK_UNIT = "sim_evals"
 
 
 class SpaceMismatch(RuntimeError):
@@ -87,7 +88,8 @@ class Driver:
         return out, int(out["fresh_evals"].sum())
 
     def facts(self) -> dict:
-        return {"runs": self.runs, "generations": self.generations,
+        return {"work_unit": WORK_UNIT,
+                "runs": self.runs, "generations": self.generations,
                 "popsize": int(self.hyperparams.get("popsize", 20)),
                 "n_valid": self.cache.space.compiled.n_valid,
                 "scan_kernel": SCAN_KERNEL}

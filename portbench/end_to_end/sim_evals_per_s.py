@@ -1,8 +1,11 @@
 """Fresh simulated evaluations committed by every run of every call,
 over the window's wall: from the first call's start to the last one's
-end (host clock)."""
+end (host clock). Read only where a call's work is simulated
+evaluations (the driver's ``work_unit``)."""
 
 
 def read(run):
+    if run.facts.get("work_unit") != "sim_evals":
+        return None
     start, end = run.calls[0][0], run.calls[-1][1]
     return sum(work for _, _, work in run.calls) / (end - start)

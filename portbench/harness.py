@@ -93,8 +93,12 @@ def load_cell(root: pathlib.Path, name: str) -> Cell:
     def mine(metric):
         return "workloads" not in metric or name in metric["workloads"]
 
+    # every end-to-end reader is asked, and reads only where the call's
+    # work is its unit (the driver's work_unit); the cells that an entry
+    # lists are what BENCHMARK.json declares of the same, and a test
+    # holds the two equal
     return Cell(name, int(entry["chips"]), config, workload,
-                [m for m in bench["end_to_end"] if mine(m)],
+                list(bench["end_to_end"]),
                 [m for m in bench["per_layer"] if mine(m)])
 
 
@@ -137,7 +141,7 @@ class Run:
 
     setup_s: float
     calls: list                 # (start_s, end_s, work) a call, host clock
-    facts: dict                 # the driver's shapes (runs, generations, ...)
+    facts: dict                 # the driver's work_unit and shapes
     memory_peak_bytes: int
     trace: "object | None" = None   # trace.Summary of a --trace 1 run
 

@@ -15,9 +15,12 @@ def run_of(calls=(), trace=None, facts=None, peak=0, setup_s=1.5):
     return harness.Run(setup_s, list(calls), facts or {}, peak, trace)
 
 
+CALLS = [(10.0, 10.5, 100), (10.5, 11.25, 300), (11.25, 12.0, 200)]
+
+
 def test_rate_is_all_work_over_the_whole_window():
-    calls = [(10.0, 10.5, 100), (10.5, 11.25, 300), (11.25, 12.0, 200)]
-    assert load("end_to_end", "sim_evals_per_s").read(run_of(calls)) == \
+    run = run_of(CALLS, facts={"work_unit": "sim_evals"})
+    assert load("end_to_end", "sim_evals_per_s").read(run) == \
         pytest.approx(600 / 2.0)
 
 
@@ -97,3 +100,80 @@ def test_readers_return_nothing_without_a_trace():
     for name in ("launches_per_gen", "strategy_dev_ms_per_gen",
                  "idle_share", "d2h_ms_per_call"):
         assert load("metrics", name).read(r) is None
+
+
+@pytest.mark.parametrize("unit, reads", [
+    ("sim_evals", {"sim_evals_per_s"}),
+    ("tokens", {"tokens_per_s", "step_mfu"}),
+    (None, set())])
+def test_rates_read_by_work_unit(unit, reads):
+    """Each rate reads only where a call's work is its unit; elsewhere it
+    returns nothing, and the harness leaves it out of the line."""
+    facts = {"flops_per_call": 4.947e14}
+    if unit:
+        facts["work_unit"] = unit
+    run = run_of(CALLS, facts=facts)
+    got = {n for n in ("sim_evals_per_s", "tokens_per_s", "step_mfu")
+           if load("end_to_end", n).read(run) is not None}
+    assert got == reads
+
+
+def test_tokens_per_s_and_step_mfu():
+    """Three calls of 4.947e14 FLOPs in 2 s of window: 1.4841e15 FLOP
+    over 2 s x 989.4e12 FLOP/s is 75 %."""
+    run = run_of(CALLS, facts={"work_unit": "tokens",
+                               "flops_per_call": 4.947e14})
+    assert load("end_to_end", "tokens_per_s").read(run) == \
+        pytest.approx(600 / 2.0)
+    assert load("end_to_end", "step_mfu").read(run) == pytest.approx(75.0)
+    # a count too high reads over 100 %: nothing clips it
+    run.facts["flops_per_call"] *= 2
+    assert load("end_to_end", "step_mfu").read(run) == pytest.approx(150.0)
+    del run.facts["flops_per_call"]
+    assert load("end_to_end", "step_mfu").read(run) is None
+
+
+def old_sim_evals_per_s(run):
+    """``end_to_end/sim_evals_per_s.py`` before rates were read by
+    work unit."""
+    start, end = run.calls[0][0], run.calls[-1][1]
+    return sum(work for _, _, work in run.calls) / (end - start)
+
+
+def old_call_p90_ms(run):
+    """``end_to_end/call_p90_ms.py`` before rates were read by work
+    unit."""
+    import math
+    ordered = sorted((end - start) * 1e3 for start, end, _ in run.calls)
+    return ordered[math.ceil(0.9 * len(ordered)) - 1]
+
+
+@pytest.mark.parametrize("cell", ("gemm.ga", "hotspot.pso", "gemm.random",
+                                  "hotspot.de"))
+def test_accepted_cells_read_as_before(cell):
+    """The same synthetic run of each accepted cell, with the facts its
+    driver gives, through the readers from before work units and
+    today's: the same end-to-end metrics, of the same values, and no
+    other."""
+    import pathlib
+    import random
+    root = pathlib.Path(__file__).resolve().parents[2]
+    c = harness.load_cell(root, cell)
+    n_valid = {"gemm-4096-h100": 10140, "hotspot-4096-h100": 5040}[
+        c.workload["config"]]
+    facts = {"work_unit": "sim_evals", "runs": c.workload["runs"],
+             "generations": c.workload["generations"], "popsize": 20,
+             "n_valid": n_valid, "scan_kernel": "budget_scan_kernel"}
+    rng = random.Random(cell)
+    calls, t = [], 100.0
+    for _ in range(150):
+        wall = rng.uniform(0.2, 0.5)
+        calls.append((t, t + wall, rng.randrange(10 ** 6, 10 ** 8)))
+        t += wall
+    run = run_of(calls, facts=facts, setup_s=rng.uniform(8, 20))
+    got = harness.read_metrics(run, c.end_to_end, "end_to_end")
+    assert got == {
+        "sim_evals_per_s": {"value": old_sim_evals_per_s(run),
+                            "unit": "evals/s"},
+        "call_p90_ms": {"value": old_call_p90_ms(run), "unit": "ms"},
+        "setup_s": {"value": run.setup_s, "unit": "s"}}
