@@ -1,4 +1,5 @@
-"""Assigned architecture configs (10) + input-shape registry.
+"""Assigned architecture configs (10), the port's own (``PORT_ARCHS``) and
+the input-shape registry.
 
 One module per architecture (``configs/<id>.py``, exact dims from public
 literature — sources in each file); reduced smoke-test variants come from
@@ -7,7 +8,9 @@ and the per-cell support rules.
 
 Port of ``src/repro/configs/__init__.py``, a copy: the same registry,
 shapes and support rules, so a config name means the same model in both
-packages.
+packages. ``PORT_ARCHS`` holds configurations the reference does not
+have (``hybrid_moe.py``); ``get_config`` resolves both registries, and
+``ARCHS`` stays the reference's.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import dataclasses
 
 from .base import ArchConfig
 from .gemma3_1b import CONFIG as GEMMA3_1B
+from .granite_4_0_h_small_ep8 import CONFIG as GRANITE4H_SMALL_EP8
 from .grok_1_314b import CONFIG as GROK1_314B
 from .mamba2_130m import CONFIG as MAMBA2_130M
 from .olmo_1b import CONFIG as OLMO_1B
@@ -33,11 +37,18 @@ ARCHS: dict[str, ArchConfig] = {
 }
 
 
+# the port's own configurations (no counterpart in the reference)
+PORT_ARCHS: dict[str, ArchConfig] = {
+    c.name: c for c in (GRANITE4H_SMALL_EP8,)
+}
+
+
 def get_config(name: str) -> ArchConfig:
     try:
-        return ARCHS[name]
+        return ARCHS[name] if name in ARCHS else PORT_ARCHS[name]
     except KeyError:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
 
 
 # --------------------------------------------------------------------------

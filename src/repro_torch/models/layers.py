@@ -31,10 +31,11 @@ def param(t: torch.Tensor) -> nn.Parameter:
 
 
 # ------------------------------------------------------------------- norms
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = EPS) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + EPS) * (1.0 + scale.float())
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
     return out.to(x.dtype)
 
 
@@ -48,17 +49,20 @@ def layernorm_np(x: torch.Tensor) -> torch.Tensor:
 
 class Norm(nn.Module):
     """``make_norm`` + ``apply_norm``: rmsnorm with a zero-initialised
-    scale, or the parameter-free ``layernorm_np``."""
+    scale, or the parameter-free ``layernorm_np``. The rmsnorm's epsilon
+    is ``EPS``, or the config's ``norm_eps`` where it has one (the port's
+    own ``hybrid_moe`` family)."""
 
     def __init__(self, cfg: ArchConfig, d: int, device=None):
         super().__init__()
         self.kind = cfg.norm
+        self.eps = getattr(cfg, "norm_eps", EPS)
         if cfg.norm == "rmsnorm":
             self.scale = param(torch.zeros((d,), device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.kind == "rmsnorm":
-            return rmsnorm(x, self.scale)
+            return rmsnorm(x, self.scale, self.eps)
         return layernorm_np(x)
 
 
@@ -100,8 +104,8 @@ def dense_init(gen: torch.Generator | None, d_in: int, d_out: int,
 
 
 def embed_init(gen: torch.Generator | None, vocab: int, d: int,
-               device=None) -> torch.Tensor:
-    return torch.randn((vocab, d), generator=gen, device=device) * 0.02
+               device=None, std: float = 0.02) -> torch.Tensor:
+    return torch.randn((vocab, d), generator=gen, device=device) * std
 
 
 def activation(cfg: ArchConfig, gate: torch.Tensor | None,

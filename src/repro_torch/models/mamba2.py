@@ -54,7 +54,7 @@ from ..distribution.annotate import (annotate, gathered, matmul_tp,
                                      merge_last, site_placements,
                                      split_last, summed_map)
 from ..kernels import ssd as ssd_kernel
-from .layers import dense_init, param, rmsnorm
+from .layers import EPS, dense_init, param, rmsnorm
 
 CONV_DTYPE = torch.bfloat16  # the decode cache's raw conv inputs
 
@@ -292,6 +292,7 @@ class Mamba(nn.Module):
         self.dt_bias = param(torch.zeros((nh,), device=device))
         self.D = param(torch.ones((nh,), device=device))
         self.gate_norm = param(torch.zeros((d_in,), device=device))
+        self.eps = getattr(cfg, "norm_eps", EPS)  # the gated norm's
         self.out_proj = param(dense_init(gen, d_in, d, device=device))
 
     def forward(self, x: torch.Tensor, return_cache: bool = False):
@@ -327,7 +328,7 @@ class Mamba(nn.Module):
                                   final_state=return_cache)
         y = y + self.D.to(y.dtype)[None, None, :, None] * xh  # skip
         y = merge_last(y)[:, :s]
-        y = rmsnorm(y * F.silu(z), self.gate_norm)            # gated norm
+        y = rmsnorm(y * F.silu(z), self.gate_norm, self.eps)  # gated norm
         out = y @ gathered(self.out_proj.to(dt_), y)
         if not return_cache:
             return out, None
@@ -364,7 +365,7 @@ class Mamba(nn.Module):
              * xh[:, :, None, :])
         y = torch.einsum("bhnp,bn->bhp", h, cvec) + self.D[None, :, None] * xh
         y = merge_last(y).to(dt_)
-        y = rmsnorm(y * F.silu(z), self.gate_norm)
+        y = rmsnorm(y * F.silu(z), self.gate_norm, self.eps)
         out = (y @ gathered(self.out_proj.to(dt_), y))[:, None, :]
         return out, win[:, 1:], h
 

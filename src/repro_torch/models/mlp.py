@@ -34,6 +34,17 @@ from ..distribution.annotate import (annotate, gathered, shard_to_rows,
 from .layers import activation, dense_init, param
 
 
+def top_k(probs: torch.Tensor, k: int) -> tuple:
+    """(top_p, top_e) (..., k): the ``k`` largest of ``probs`` (..., E),
+    renormalised to sum to 1, and their experts; the lower expert first
+    among equal probabilities, as ``lax.top_k`` (a stable descending
+    sort)."""
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[..., :k], top_e[..., :k]
+    return (top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9),
+            top_e)
+
+
 class MLP(nn.Module):
     def __init__(self, cfg: ArchConfig, d: int, ff: int, gen=None,
                  device=None):
@@ -85,12 +96,7 @@ class MoE(nn.Module):
         cap = int(-(-s * k * cfg.capacity_factor // e))
         router = self.router if router is None else router
         logits = (x @ router.to(x.dtype)).float()                # (B,S,E)
-        probs = torch.softmax(logits, dim=-1)
-        # the lower expert first among equal probabilities, as lax.top_k
-        top_p, top_e = torch.sort(probs, dim=-1, descending=True,
-                                  stable=True)
-        top_p, top_e = top_p[..., :k], top_e[..., :k]
-        top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+        top_p, top_e = top_k(torch.softmax(logits, dim=-1), k)
         # position within expert = index in the stable sort - the first
         # index of that expert
         flat_e = top_e.reshape(b, s * k)

@@ -14,6 +14,12 @@ Port of ``src/repro/models/transformer.py``. Families and their stacks:
   audio   whisper enc-dec: encoder [bi-attn + mlp] × Le over stub audio
           embeddings; decoder [self-attn + cross-attn + mlp] × Ld
 
+and one family of the port's own, with no counterpart in the reference:
+
+  hybrid_moe  [mamba2 | NoPE attn, + held experts + shared expert] × L,
+              one mixer a ``layer_types`` entry (Granite 4.0-H; the entry
+              points hand it to ``hybrid_moe.py``)
+
 Entry points, with the reference's names and arguments:
   ``init_params``                      the ``Model`` (fp32 weights)
   ``forward``                          teacher-forced logits (training;
@@ -103,6 +109,7 @@ from .mlp import MLP, MoE
 
 CACHE_DTYPE = torch.bfloat16
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+PORT_FAMILIES = ("hybrid_moe",)  # the port's own (models/hybrid_moe.py)
 # families whose layers are attention blocks with a kv cache each
 ATTENTION_STACKS = ("dense", "moe", "vlm", "audio")
 
@@ -306,16 +313,21 @@ class MambaBlock(nn.Module):
 class Model(nn.Module):
     """The parameters of one config, named as the reference's pytree:
     ``embed``, ``final_norm``, ``unembed`` (untied only), and ``layers``
-    (dense, vlm, moe, ssm; audio: the decoder, after ``encoder`` and
-    ``enc_norm``) or ``mamba_groups`` ([n_groups][every]), ``mamba_tail``
-    and ``shared`` (hybrid)."""
+    (dense, vlm, moe, ssm, hybrid_moe; audio: the decoder, after
+    ``encoder`` and ``enc_norm``) or ``mamba_groups`` ([n_groups][every]),
+    ``mamba_tail`` and ``shared`` (hybrid)."""
 
     def __init__(self, cfg: ArchConfig, gen=None, device=None):
         super().__init__()
-        if cfg.family not in FAMILIES:
+        if cfg.family not in FAMILIES + PORT_FAMILIES:
             raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
-        self.embed = param(embed_init(gen, cfg.vocab, cfg.d_model, device))
+        # the port's own families scale the embedded tokens up
+        # (``embedding_multiplier``); their table is drawn as much smaller,
+        # so the stream starts at the others' 0.02 (hybrid_moe.py says why)
+        self.embed = param(embed_init(
+            gen, cfg.vocab, cfg.d_model, device,
+            0.02 / getattr(cfg, "embedding_multiplier", 1.0)))
         self.final_norm = Norm(cfg, cfg.d_model, device)
         self.unembed = (None if cfg.tie_embeddings else param(
             dense_init(gen, cfg.d_model, cfg.vocab, device=device)))
@@ -335,6 +347,8 @@ class Model(nn.Module):
         elif cfg.family == "ssm":
             self.layers = nn.ModuleList(MambaBlock(cfg, gen, device)
                                         for _ in range(cfg.n_layers))
+        elif cfg.family == "hybrid_moe":
+            self.layers = _hybrid_moe().layers(cfg, gen, device)
         else:
             every = cfg.shared_attn_every
             n_groups, tail = divmod(cfg.n_layers, every)
@@ -359,6 +373,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator | None = None,
 
 
 # ------------------------------------------------------------------ helpers
+def _hybrid_moe():
+    """``hybrid_moe.py``, which builds on this module."""
+    from . import hybrid_moe
+    return hybrid_moe
+
+
 def _embed_sharded(embed, tokens) -> torch.Tensor:
     """``embed[tokens]`` in the compute dtype for DTensors: on each mesh
     dim of more than one rank that shards the table's vocab (V), every
@@ -562,6 +582,10 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *,
     full, per layer body. ``pre_logits``: return the final-norm hidden
     states instead of logits (the training loss computes chunked CE
     itself)."""
+    if cfg.family == "hybrid_moe":
+        return _hybrid_moe().forward(
+            cfg, params, batch, lambda blk: _maybe_remat(blk, remat),
+            pre_logits)
     x, positions, enc_out = _inputs(cfg, params, batch)
     x, _, _ = _layers(cfg, params, x, positions, False, remat, enc_out)
     x = params.final_norm(annotate(x, "dp", None, None))
@@ -578,6 +602,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     groups (n_groups, every, ...), tail, shared). ``device="meta"``
     gives the shapes alone."""
     dev = "meta" if device == "meta" else cuda.resolve_device(device)
+    if cfg.family == "hybrid_moe":
+        return _hybrid_moe().init_cache(cfg, batch, max_len, dev)
     hkv, dh, n_layers = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
 
     def kv(n):
@@ -632,6 +658,8 @@ def _kv_caches(cache: dict) -> list:
 def prefill(cfg: ArchConfig, params: Model, batch: dict, max_len: int):
     """Run the full-sequence path; return (last_logits (B, V), cache,
     cache_len)."""
+    if cfg.family == "hybrid_moe":
+        return _hybrid_moe().prefill(cfg, params, batch, max_len)
     tokens = batch["tokens"]
     b, s = tokens.shape
     if s > max_len:
@@ -670,6 +698,9 @@ def decode_step(cfg: ArchConfig, params: Model, cache: dict, tokens,
     ``cache_len`` is the number of valid positions already in the cache
     (an int, or a (B,) tensor; one on the tokens' device costs no copy
     from the host, which would wait for the card)."""
+    if cfg.family == "hybrid_moe":
+        return _hybrid_moe().decode_step(cfg, params, cache, tokens,
+                                         cache_len)
     x = _embed(cfg, params, tokens)
     idx = torch.as_tensor(cache_len, device=tokens.device).broadcast_to(
         tokens.shape[:1])

@@ -1512,3 +1512,191 @@ def test_fake_world_dry_run_cell_on_card(card):
         assert sum(rec["collectives"]["counts"].values()) > 0
     finally:
         destroy_world()
+
+
+# ------------------------------------------------ the hybrid_moe family
+GRANITE_LIMIT_S = 300     # this test's own time limit
+
+
+def _granite_mid(cfg):
+    """granite-4.0-h-small-ep8 at a mid size on the card: its head, state,
+    expert and shared widths, 4 layers (Mamba, attention, Mamba,
+    attention), d 1024, 8 of 32 heads (2 kv), vocabulary 4,096, the
+    router's 72 experts, top 10, 9 held."""
+    return dataclasses.replace(
+        cfg, name="granite-mid", n_layers=4,
+        layer_types=("mamba", "attention", "mamba", "attention"),
+        d_model=1024, n_heads=8, n_kv_heads=2, ssm_heads=32, vocab=4096)
+
+
+def test_granite_mid_on_card_matches_reference(card):
+    """The port's prefill through the kernels (flash attention at the 1/128
+    scale of q·k, the SSD at chunk 256) and decode through the cache,
+    against the benchmark's plain float32 reference on the card (TF32
+    off), with the router skewed so that three experts take most tokens:
+    the served bf16 logits within 5 % of the largest (2.2 % on the CPU's
+    plain versions at this size: the logits come out of layer outputs
+    that cancel), and in float32 compute, the conv cache too, within
+    1e-3 of it (3.8e-6 on the CPU; the kernels reassociate float32 sums,
+    flash attention's RTOL 2e-4); the attention layer
+    alone in float32 within 1e-3 of the reference's at 1/128 (the kernel's
+    float32 RTOL, 2e-4, over a 1,000-key softmax and two products) and
+    not at d^-1/2; the held rows counted while traced equal the routed
+    pairs (dropless). Runs under a time limit of its
+    own (``GRANITE_LIMIT_S``)."""
+    import importlib.util
+    import pathlib
+    import signal
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid_moe, mamba2
+    from repro_torch.models import transformer as tf
+
+    def too_long(*_):
+        raise TimeoutError(f"over {GRANITE_LIMIT_S} s")
+
+    old = signal.signal(signal.SIGALRM, too_long)
+    signal.alarm(GRANITE_LIMIT_S)
+    try:
+        root = pathlib.Path(__file__).resolve().parents[1]
+        spec = importlib.util.spec_from_file_location(
+            "granite4h_ref", root / "portbench/reference/granite4h.py")
+        ref = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(ref)
+        cfg = _granite_mid(get_config("granite-4.0-h-small-ep8"))
+        rcfg = {**__import__("json").loads((
+            root / "portbench/configs/granite-4.0-h-small-ep8.json"
+        ).read_text()), "hidden_size": cfg.d_model, "num_attention_heads":
+            cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+            "mamba_n_heads": cfg.ssm_heads, "layer_types":
+            list(cfg.layer_types)}
+        b, s, new = 2, 1000, 4
+        toks = torch.from_numpy(np.random.default_rng(38).integers(
+            0, cfg.vocab, (b, s))).to(card)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.no_grad():
+            model = tf.init_params(cfg, torch.Generator(
+                device=card).manual_seed(38), device=card)
+            for blk in model.layers:     # uneven: experts 0-2 preferred
+                blk.moe.router[:, :3] *= 6.0
+            w = {n: p.detach() for n, p in model.named_parameters()}
+
+            def served(dtype):
+                tf.COMPUTE_DTYPE = tf.CACHE_DTYPE = dtype
+                mamba2.CONV_DTYPE = (torch.float32 if dtype == torch.float32
+                                     else torch.bfloat16)
+                try:
+                    launches = fa.launches
+                    logits, cache, n = tf.prefill(cfg, model,
+                                                  {"tokens": toks}, s + new)
+                    torch.cuda.synchronize()
+                    assert fa.launches - launches == 2
+                    out, fed = [logits], []
+                    cl = torch.full((b,), n, device=card)
+                    for _ in range(new - 1):
+                        fed.append(logits.argmax(-1))
+                        logits, cache = tf.decode_step(
+                            cfg, model, cache, fed[-1][:, None], cl)
+                        cl = cl + 1
+                        out.append(logits)
+                    return torch.stack(out, 1), torch.stack(fed, 1)
+                finally:
+                    tf.COMPUTE_DTYPE = tf.CACHE_DTYPE = torch.bfloat16
+                    mamba2.CONV_DTYPE = torch.bfloat16
+
+            def reference(fed, **over):
+                feed = torch.cat([toks, fed], 1)
+                return torch.cat([ref.logits({**rcfg, **over}, w,
+                                             feed[i:i + 1], s - 1)
+                                  for i in range(b)])
+
+            for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+                ours, fed = served(dtype)
+                want = reference(fed)
+                err = (ours - want).abs().max() / want.abs().max()
+                assert err <= tol, (dtype, float(err))
+            # the attention layer alone, float32 through the kernel: at
+            # the 1/128 scale, and far from the reference at d^-1/2
+            tf.COMPUTE_DTYPE = torch.float32
+            try:
+                z = torch.randn((b, s, cfg.d_model), device=card,
+                                generator=torch.Generator(
+                                    device=card).manual_seed(39))
+                got = model.layers[1].attn(z, None, rope=False)[0]
+            finally:
+                tf.COMPUTE_DTYPE = torch.bfloat16
+            for mult, close in ((cfg.attention_multiplier, True),
+                                (128 ** -0.5, False)):
+                want = torch.stack([ref._attention(
+                    {**rcfg, "attention_multiplier": mult}, w,
+                    "layers.1.attn.", z[i]) for i in range(b)])
+                err = (got - want).abs().max() / want.abs().max()
+                assert bool(err <= 1e-3) == close, (mult, float(err))
+            for name in ("calls", "decode_steps", "tokens_routed",
+                         "held_rows"):
+                setattr(hybrid_moe, name, 0)
+            rows = []
+            hooks = [blk.moe.register_forward_hook(
+                lambda mod, args, out: rows.append(int(mod.route(
+                    args[0].reshape(-1, cfg.d_model))[2].sum())))
+                for blk in model.layers]
+            with profile(activities=[ProfilerActivity.CPU]):
+                served(torch.bfloat16)
+            for h in hooks:
+                h.remove()
+            counted = hybrid_moe.counters()
+            assert counted["held_rows"] == sum(rows)
+            # uneven: far above the even 10 x 9 / 72 = 1.25 a token
+            assert counted["held_rows"] / counted["tokens_routed"] > 2.0
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def test_granite_decode_graph_replays_the_eager_step(card):
+    """The family's decode on the card: the first step eager, then the
+    captured graph replayed, a second prefill's cache taken over; every
+    step's logits equal to the eager step's through the same cache, bit
+    for bit. While a profiler records and no graph fits, the step runs
+    eagerly and captures nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid_moe
+    from repro_torch.models import transformer as tf
+
+    cfg = _granite_mid(get_config("granite-4.0-h-small-ep8"))
+    b, s, new = 2, 300, 4
+    with torch.inference_mode():
+        model = tf.init_params(cfg, torch.Generator(
+            device=card).manual_seed(41), device=card)
+
+        def steps(toks, graphed):
+            logits, cache, n = tf.prefill(cfg, model, {"tokens": toks},
+                                          s + new)
+            cl, out = torch.full((b,), n, device=card), [logits]
+            for _ in range(new - 1):
+                nxt = logits.argmax(-1)[:, None]
+                if graphed:
+                    logits, cache = tf.decode_step(cfg, model, cache, nxt,
+                                                   cl)
+                else:
+                    logits = hybrid_moe._step(cfg, model, cache, nxt, cl)
+                cl = cl + 1
+                out.append(logits)
+            return torch.stack(out, 1)
+
+        for seed in (1, 2):
+            toks = torch.randint(0, cfg.vocab, (b, s), device=card,
+                                 generator=torch.Generator(
+                                     device=card).manual_seed(seed))
+            assert torch.equal(steps(toks, True), steps(toks, False))
+        graph = model.__dict__["_decode_graph"]
+        assert isinstance(graph, hybrid_moe._DecodeGraph)
+        del model.__dict__["_decode_graph"]
+        with profile(activities=[ProfilerActivity.CPU]):
+            traced = steps(toks, True)
+        assert "_decode_graph" not in model.__dict__
+        assert torch.equal(traced, steps(toks, False))
